@@ -1,0 +1,48 @@
+"""Architecture registry of the port: the dense full-attention configs
+whose serving path is ported (``gpt3-24l``, ``qwen3-8b``,
+``llama3-405b``, ``qwen1.5-32b``).
+
+Each ``<arch>.py`` module exports ``CONFIG`` (the exact spec, source
+cited) and ``SMOKE`` (a reduced same-family variant runnable on the CPU).
+The other architectures of ``repro.configs`` need mixers, caches or FFNs
+the port does not have yet; asking for one raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Tuple
+
+from repro_torch.models.config import ModelConfig
+
+_ARCH_MODULES = {
+    "qwen3-8b": "qwen3_8b",
+    "gpt3-24l": "gpt3_24l",
+    "llama3-405b": "llama3_405b",
+    "qwen1.5-32b": "qwen1_5_32b",
+}
+
+# archs of the JAX package whose mixers / FFNs are not ported yet
+_NOT_YET_PORTED = ("jamba-1.5-large-398b", "gemma3-12b",
+                   "llava-next-mistral-7b", "musicgen-medium",
+                   "qwen3-moe-235b-a22b", "rwkv6-7b", "deepseek-v3-671b",
+                   "bert-large")
+
+ALL_ARCHS: Tuple[str, ...] = tuple(_ARCH_MODULES)
+
+
+def _module(name: str):
+    if name in _NOT_YET_PORTED:
+        raise NotImplementedError(
+            f"repro_torch: arch {name!r} is not yet ported (ported: "
+            f"{', '.join(ALL_ARCHS)})")
+    if name not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {name!r}")
+    return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _module(name).SMOKE

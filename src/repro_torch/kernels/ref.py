@@ -1,0 +1,74 @@
+"""Plain PyTorch versions of the port's hand-written kernels.
+
+Each function computes what its CUDA kernel computes, in ordinary tensor
+ops.  The kernel wrappers run these for tensors that lie on the CPU (the
+tests), and ``chip_smoke.py`` holds each kernel against its plain
+version on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30  # finite "minus infinity" keeps online softmax NaN-free
+
+
+def paged_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        pos: torch.Tensor, table: torch.Tensor,
+                        q_pos: torch.Tensor, *, scale: Optional[float] = None,
+                        window: int = 0, softcap: float = 0.0,
+                        q_extra: Optional[torch.Tensor] = None,
+                        k_extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Paged single-token decode attention, one table column at a time.
+
+    q: (B, 1, Hq, D); k: (N, page, Hkv, D); v: (N, page, Hkv, Dv);
+    pos: (N, page) int32 (< 0 = unwritten); table: (B, n_cols) int32
+    (< 0 = unallocated); q_pos: (B, 1) int32 (< 0 = idle slot).
+    q_extra (B, 1, Hq, De) / k_extra (N, page, Hkv, De) add a second
+    score contraction (MLA rope term).  Returns (B, 1, Hq, Dv) in q.dtype.
+
+    The walk, mask and online softmax are those of the Pallas kernel
+    (``repro/kernels/paged_attention.py:139-198``): the mask is
+    ``blk >= 0 & pos >= 0 & pos <= q_pos`` (``& pos > q_pos - window`` for
+    SWA), a fully masked page gives ``alpha = exp(0) = 1`` and ``p = 0``
+    (so a -1 column is exactly neutral), and the finalize is
+    ``acc / max(l, 1e-30)`` (so an idle slot outputs exact zeros)."""
+    B, _, Hq, D = q.shape
+    Hkv, Dv = v.shape[2], v.shape[3]
+    G = Hq // Hkv
+    n_cols = table.shape[1]
+    if scale is None:
+        scale = D ** -0.5
+    qf = q.float().reshape(B, Hkv, G, D) * scale
+    qe = None
+    if q_extra is not None:
+        qe = q_extra.float().reshape(B, Hkv, G, q_extra.shape[-1]) * scale
+    qp = q_pos.reshape(B, 1)
+    m = torch.full((B, Hkv, G, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Hkv, G, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hkv, G, Dv), dtype=torch.float32, device=q.device)
+    for c in range(n_cols):
+        blk = table[:, c]
+        safe = blk.clamp(min=0).long()
+        s = torch.einsum("bngd,bpnd->bngp", qf, k[safe].float())
+        if qe is not None:
+            s = s + torch.einsum("bngd,bpnd->bngp", qe, k_extra[safe].float())
+        if softcap > 0.0:
+            s = softcap * torch.tanh(s / softcap)
+        pj = pos[safe]                                       # (B, page)
+        ok = (blk[:, None] >= 0) & (pj >= 0) & (pj <= qp)
+        if window > 0:
+            ok &= pj > qp - window
+        okb = ok[:, None, None, :]
+        s = torch.where(okb, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(okb, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bngp,bpnd->bngd", p,
+                                         v[safe].float())
+        m = m_new
+    out = acc / l.clamp(min=1e-30)
+    return out.reshape(B, 1, Hq, Dv).to(q.dtype)

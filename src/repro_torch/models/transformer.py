@@ -1,0 +1,248 @@
+"""Decoder model of the port: dense full-attention layers with SwiGLU
+FFNs, built from a ``ModelConfig`` like ``repro.models.transformer``.
+
+Parameters and decode caches are nested dicts under the JAX package's
+key names.  Stack leaves carry a leading ``n_periods`` axis; ``forward``
+loops over it in Python (the JAX version's ``lax.scan``), and the cache
+of period i is a view into the stacked storage, written in place.
+``Transformer`` is the ``nn.Module`` that owns such a parameter tree.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.models.config import ATTN, DENSE, ModelConfig
+from repro_torch.models.layers import (attn_apply, attn_init, cache_init,
+                                       dense_init, embed_init, ffn_apply,
+                                       ffn_init, paged_cache_init, rmsnorm,
+                                       rmsnorm_init)
+
+
+def _check_layer(spec) -> None:
+    if spec.mixer != ATTN or spec.ffn != DENSE:
+        raise NotImplementedError(
+            f"repro_torch: layer {spec} is not ported yet (dense "
+            f"full-attention layers only)")
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    if cfg.use_mla or cfg.ext_embed_dim or cfg.mtp_depth:
+        raise NotImplementedError(
+            f"repro_torch: {cfg.name} needs MLA / modality frontends / MTP, "
+            f"which are not ported yet")
+    for spec in tuple(cfg.prefix_layers) + tuple(cfg.period):
+        _check_layer(spec)
+
+
+# ---------------------------------------------------------------------------
+# Per-layer init / apply
+# ---------------------------------------------------------------------------
+
+def layer_init(gen: torch.Generator, spec, cfg: ModelConfig, lead=(),
+               device=None) -> dict:
+    _check_layer(spec)
+    return {"norm1": rmsnorm_init(cfg.d_model, lead, device),
+            "norm2": rmsnorm_init(cfg.d_model, lead, device),
+            "mixer": attn_init(gen, cfg, lead, device),
+            "ffn": ffn_init(gen, cfg, lead=lead, device=device)}
+
+
+def layer_cache_init(spec, cfg: ModelConfig, batch: int, cache_len: int,
+                     dtype=torch.bfloat16, *, paged: bool = False,
+                     page_size: int = 16, num_blocks: int = 0, lead=(),
+                     device=None) -> dict:
+    """Dense per-slot KV cache, or (``paged=True``) a block pool of
+    ``num_blocks`` pages shared through the block table."""
+    _check_layer(spec)
+    if paged:
+        return paged_cache_init(num_blocks, page_size, cfg.n_kv_heads,
+                                cfg.head_dim, dtype, lead, device)
+    return cache_init(batch, cache_len, cfg.n_kv_heads, cfg.head_dim, dtype,
+                      lead, device)
+
+
+def layer_apply(lp: dict, spec, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, cache: Optional[dict], *,
+                kv_chunk: int = 1024, masked_slots: bool = False,
+                block_table=None, use_kernel: bool = False):
+    """Pre-norm residual block: x + attn(norm1(x)), then + ffn(norm2(x)).
+    Returns (x, cache, aux_loss); the cache is written in place."""
+    _check_layer(spec)
+    h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+    h, cache = attn_apply(lp["mixer"], h, cfg, positions=positions,
+                          cache=cache, kv_chunk=kv_chunk,
+                          masked_slots=masked_slots, table=block_table,
+                          use_kernel=use_kernel)
+    x = x + h
+    h = rmsnorm(x, lp["norm2"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + ffn_apply(lp["ffn"], h), cache, aux
+
+
+# ---------------------------------------------------------------------------
+# Whole-model init
+# ---------------------------------------------------------------------------
+
+def init_params(seed: int, cfg: ModelConfig, *,
+                device: DeviceLike = None) -> dict:
+    """Random parameters drawn on ``device`` (cuda unless "cpu" is asked
+    for) from a generator seeded with ``seed``: the shapes, scales and
+    dtypes of ``repro.models.transformer.init_params``, not its numbers
+    (parity tests convert the JAX package's parameters instead)."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                  device=dev),
+              "final_norm": rmsnorm_init(cfg.d_model, device=dev)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                       device=dev)
+    if cfg.prefix_layers:
+        params["prefix"] = tuple(layer_init(gen, spec, cfg, device=dev)
+                                 for spec in cfg.prefix_layers)
+    for stack in cfg.stacks:
+        params["stack"] = tuple(
+            layer_init(gen, spec, cfg, lead=(stack.n_periods,), device=dev)
+            for spec in stack.period)
+    return params
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               dtype=torch.bfloat16, *, paged: bool = False,
+               page_size: int = 16, num_blocks: Optional[int] = None,
+               device: DeviceLike = None) -> dict:
+    """Decode-cache tree.  ``paged=True`` replaces the dense per-slot
+    (batch, cache_len, ...) caches with per-layer block pools of
+    ``num_blocks`` pages (default: the dense cache's memory).  Stack
+    leaves get REAL per-period storage (n_periods, ...): an ``expand``
+    would alias every period and in-place writes would corrupt them."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    if num_blocks is None:
+        num_blocks = max(1, -(-batch * cache_len // page_size))
+    kw = dict(paged=paged, page_size=page_size, num_blocks=num_blocks,
+              device=dev)
+    caches = {}
+    if cfg.prefix_layers:
+        caches["prefix"] = tuple(
+            layer_cache_init(spec, cfg, batch, cache_len, dtype, **kw)
+            for spec in cfg.prefix_layers)
+    for stack in cfg.stacks:
+        caches["stack"] = tuple(
+            layer_cache_init(spec, cfg, batch, cache_len, dtype,
+                             lead=(stack.n_periods,), **kw)
+            for spec in stack.period)
+    return caches
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def embed_inputs(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """batch: {"tokens": (B,S) int}.  (Embedding frontends are not
+    ported.)"""
+    return params["embed"][batch["tokens"].long()]
+
+
+def unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """Logits in float32 from a matmul in h.dtype (bf16): casting only
+    after the product keeps the JAX version's rounding."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (h @ head.to(h.dtype)).float()
+
+
+def _period(tree, i: int):
+    """Period i of a stacked (n_periods, ...) tree: views, no copies."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    if isinstance(tree, dict):
+        return {k: _period(v, i) for k, v in tree.items()}
+    return tuple(_period(v, i) for v in tree)
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict, *,
+            caches: Optional[dict] = None,
+            positions: Optional[torch.Tensor] = None,
+            kv_chunk: int = 1024, compute_logits: bool = True,
+            masked_slots: bool = False, block_table=None,
+            use_kernel: bool = False):
+    """Run the decoder.  Returns (logits_or_hidden, aux_loss, caches);
+    ``caches`` is updated in place and returned.  ``positions`` defaults
+    to arange(S) per row.  ``block_table`` marks ``caches`` as paged
+    pools; ``use_kernel=True`` runs paged single-token decode attention
+    through the Hopper kernel."""
+    x = embed_inputs(params, cfg, batch)
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device)[None].expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    kw = dict(kv_chunk=kv_chunk, masked_slots=masked_slots,
+              block_table=block_table, use_kernel=use_kernel)
+    for i, spec in enumerate(cfg.prefix_layers):
+        c = caches["prefix"][i] if caches is not None else None
+        x, _, a = layer_apply(params["prefix"][i], spec, cfg, x, positions,
+                              c, **kw)
+        aux = aux + a
+    for stack in cfg.stacks:
+        for t in range(stack.n_periods):
+            pp = _period(params["stack"], t)
+            pc = _period(caches["stack"], t) if caches is not None else None
+            for j, spec in enumerate(stack.period):
+                x, _, a = layer_apply(pp[j], spec, cfg, x, positions,
+                                      pc[j] if pc is not None else None, **kw)
+                aux = aux + a
+    h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    out = unembed(params, cfg, h) if compute_logits else h
+    return out, aux, caches
+
+
+class _Node(nn.Module):
+    """One dict level of a parameter tree: tensors become frozen
+    ``nn.Parameter``s, sub-dicts submodules, tuples ``ModuleList``s."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        self._kinds = {}
+        for k, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+                self._kinds[k] = "leaf"
+            elif isinstance(v, dict):
+                self.add_module(k, _Node(v))
+                self._kinds[k] = "dict"
+            else:
+                self.add_module(k, nn.ModuleList(_Node(x) for x in v))
+                self._kinds[k] = "tuple"
+
+    def as_dict(self) -> dict:
+        out = {}
+        for k, kind in self._kinds.items():
+            sub = getattr(self, k)
+            out[k] = (sub if kind == "leaf" else sub.as_dict()
+                      if kind == "dict" else tuple(n.as_dict() for n in sub))
+        return out
+
+
+class Transformer(_Node):
+    """Owns a parameter tree, so ``state_dict`` keys are the JAX key
+    paths ("stack.0.mixer.wq", ...).  ``params()`` hands the functional
+    code the same tensors as a nested dict — no copies."""
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        check_ported(cfg)
+        super().__init__(params)
+        self.cfg = cfg
+
+    def params(self) -> dict:
+        return self.as_dict()
+
+    def forward(self, batch: dict, **kw):
+        return forward(self.params(), self.cfg, batch, **kw)

@@ -1,0 +1,692 @@
+"""Serving engine of the port: chunked-prefill continuous batching over a
+dense or paged (block-table) KV cache, with content-addressed prefix
+sharing and copy-on-write pages — the counterpart of
+``repro.serve.engine`` for dense full-attention models.
+
+One step function (``make_engine_step``) serves both chunked prefill
+(S = chunk) and the batched decode tick (S = 1).  Only the last position
+is unembedded, and the token is chosen inside the step: greedy argmax,
+repetition penalty and temperature / top-p / top-k sampling.  The JAX
+version's ``lax.cond`` gates are host-side ``if``s on the engine's numpy
+sampling arrays here, so an all-greedy tick runs no penalty or sampling
+work.  Nothing inside a step's forward pass waits for the device; a
+decode tick reads the next tokens of every slot in one device-to-host
+copy at its end, not one ``int()`` per slot.
+
+Sampling is Gumbel-argmax with a per-slot ``torch.Generator`` seeded
+from (seed + slot, step counter), like the JAX engine's counter keys; it
+does not reproduce JAX's threefry bits.  Export / import, drain,
+preemption, pool pressure and the LRU page hold wait for a later slice.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, device_of, resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import NEG_INF
+from repro_torch.models.transformer import (check_ported, forward, init_cache,
+                                            unembed)
+
+# pool leaves of paged attention caches (block-indexed, shared across
+# slots); everything else in a cache tree is per-slot state
+POOL_LEAVES = ("k", "v", "pos")
+
+
+def topp_sample(uniform: torch.Tensor, logits: torch.Tensor,
+                temperature: torch.Tensor, top_p: torch.Tensor,
+                top_k: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-row temperature + nucleus (+ optional top-k) sampling.
+
+    uniform: (B, V) noise in [0, 1), one row per slot; logits: (B, V) f32;
+    temperature / top_p: (B,) f32; top_k: (B,) int, 0 = no cut.  Each
+    row samples (Gumbel-argmax) from the smallest prefix of its sorted
+    distribution whose mass reaches top_p, intersected with its top_k
+    highest logits; the top token always stays, so top_p -> 0 or
+    top_k == 1 is greedy.  Returns (B, 1) int32."""
+    V = logits.shape[-1]
+    lg = logits / temperature.clamp(min=1e-6)[:, None]
+    order = torch.argsort(-lg, dim=-1, stable=True)
+    slg = torch.gather(lg, -1, order)
+    probs = torch.softmax(slg, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = (cum - probs) < top_p[:, None]
+    if top_k is not None:
+        k_eff = torch.where(top_k > 0, top_k, V)
+        keep &= torch.arange(V, device=logits.device)[None, :] < k_eff[:, None]
+    slg = torch.where(keep, slg, NEG_INF)
+    u = uniform.clamp(min=torch.finfo(torch.float32).tiny)
+    idx = torch.argmax(slg - torch.log(-torch.log(u)), dim=-1, keepdim=True)
+    return torch.gather(order, -1, idx).to(torch.int32)
+
+
+def slot_uniforms(rng_keys: np.ndarray, rows, vocab: int,
+                  device: torch.device) -> torch.Tensor:
+    """(B, V) uniform noise; row b (for b in ``rows``) drawn from a
+    generator seeded by its counter key (slot seed, step), so a sampled
+    slot's stream depends only on (seed, slot, step)."""
+    u = torch.full((rng_keys.shape[0], vocab), 0.5, device=device)
+    for b in rows:
+        gen = torch.Generator(device=device)
+        gen.manual_seed((int(rng_keys[b, 0]) << 32) | int(rng_keys[b, 1]))
+        u[b] = torch.rand(vocab, generator=gen, device=device)
+    return u
+
+
+def apply_repetition_penalty(logits: torch.Tensor, seen: torch.Tensor,
+                             rep_penalty: torch.Tensor) -> torch.Tensor:
+    """CTRL-style repetition penalty per row: logits of tokens the row has
+    seen are divided by the penalty when positive and multiplied when
+    negative.  Rows with penalty 1.0 come back bitwise-untouched."""
+    pen = rep_penalty[:, None]
+    scaled = torch.where(logits > 0, logits / pen, logits * pen)
+    return torch.where(seen & (pen != 1.0), scaled, logits)
+
+
+def make_engine_step(cfg: ModelConfig, *, kv_chunk: int = 1024,
+                     paged: bool = False, use_kernel: bool = False):
+    """(params, caches, seen (B,V) bool, tokens (B,S), positions (B,S),
+    table (B,n_cols), rng_keys (B,2) uint32, temperature (B,), top_p (B,),
+    top_k (B,), rep_penalty (B,)) -> (next-token ids (B,1) int32, caches,
+    seen).
+
+    tokens / positions / table are device tensors; the sampling operands
+    are the engine's host numpy arrays, so the penalty and sampling
+    branches are decided on the host without a device sync.  Rows with
+    position -1 are cache no-ops.  ``caches`` and ``seen`` are updated in
+    place.  ``use_kernel=True`` runs paged S=1 decode attention through
+    the Hopper paged-decode kernel."""
+    def engine_step(params, caches, seen, tokens, positions, table,
+                    rng_keys, temperature, top_p, top_k, rep_penalty):
+        B = tokens.shape[0]
+        dev = tokens.device
+        penalize = bool(np.any(rep_penalty != 1.0))
+        if penalize:
+            ok = positions >= 0
+            rows = torch.arange(B, device=dev)[:, None].expand_as(tokens)
+            seen[rows[ok], tokens[ok].long()] = True
+        h, _, caches = forward(params, cfg, {"tokens": tokens},
+                               caches=caches, positions=positions,
+                               kv_chunk=kv_chunk, compute_logits=False,
+                               masked_slots=True,
+                               block_table=table if paged else None,
+                               use_kernel=use_kernel)
+        lg = unembed(params, cfg, h[:, -1:, :])[:, 0, :]
+        if penalize:
+            lg = apply_repetition_penalty(
+                lg, seen, torch.from_numpy(rep_penalty).to(dev))
+        tok = torch.argmax(lg, dim=-1, keepdim=True).to(torch.int32)
+        sampled_rows = np.nonzero(temperature > 0.0)[0]
+        if len(sampled_rows):
+            temp = torch.from_numpy(temperature).to(dev)
+            u = slot_uniforms(rng_keys, sampled_rows, lg.shape[-1], dev)
+            sampled = topp_sample(u, lg, temp,
+                                  torch.from_numpy(top_p).to(dev),
+                                  torch.from_numpy(top_k).to(dev))
+            tok = torch.where(temp[:, None] > 0.0, sampled, tok)
+        return tok, caches, seen
+    return engine_step
+
+
+def generate(params: dict, cfg: ModelConfig, prompts, *, max_new: int,
+             cache_len: Optional[int] = None) -> torch.Tensor:
+    """Greedy batched generation on the parameters' device (the reference
+    the engine tests compare against).  prompts: (B, S) int.  Returns
+    (B, S + max_new) int32."""
+    dev = device_of(params)
+    prompts = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    B, S0 = prompts.shape
+    caches = init_cache(cfg, B, cache_len or (S0 + max_new), device=dev)
+    pos = torch.arange(S0, dtype=torch.int32, device=dev)[None].expand(B, S0)
+    logits, _, caches = forward(params, cfg, {"tokens": prompts},
+                                caches=caches, positions=pos)
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    out = [prompts]
+    for t in range(max_new):
+        out.append(tok)
+        if t == max_new - 1:
+            break
+        posd = torch.full((B, 1), S0 + t, dtype=torch.int32, device=dev)
+        logits, _, caches = forward(params, cfg, {"tokens": tok},
+                                    caches=caches, positions=posd)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    return torch.cat(out, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Slot-based continuous batcher
+# ---------------------------------------------------------------------------
+
+@dataclass
+class Request:
+    req_id: int
+    prompt: List[int]
+    max_new: int
+    temperature: float = 0.0     # 0 -> greedy
+    top_p: float = 1.0
+    top_k: int = 0               # 0 -> no top-k cut
+    rep_penalty: float = 1.0     # 1.0 -> no repetition penalty
+    generated: List[int] = field(default_factory=list)
+    pending: int = -1            # next token to feed/emit
+    done: bool = False
+
+
+class BlockAllocator:
+    """Host-side free list over the paged pool, reference-counted and
+    content-addressed (the JAX version without the LRU hold and pool
+    pressure, which wait for a later slice).
+
+    Admission reserves a request's worst case up front; ``alloc_one``
+    takes a page against a reservation at refcount 1, ``share`` bumps a
+    page another slot's table now references, and ``free`` drops one
+    reference per block and returns the blocks whose count reached zero
+    — only those are back on the free list, and the caller scrubs them.
+    ``register`` / ``lookup`` map a prefix-page digest to its block,
+    verified by a check value (parent block + exact tokens), so a digest
+    collision is a miss, never wrong content."""
+
+    def __init__(self, num_blocks: int):
+        self.num_blocks = num_blocks
+        self._free = list(range(num_blocks - 1, -1, -1))
+        self.reserved = 0
+        self.refcount: Dict[int, int] = {}
+        self._by_digest: Dict[int, int] = {}       # digest -> block
+        self._entries: Dict[int, tuple] = {}       # block -> (digest, check)
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def can_reserve(self, n: int) -> bool:
+        return self.n_free - self.reserved >= n
+
+    def reserve(self, n: int) -> bool:
+        """Set aside ``n`` future pages; False = backpressure."""
+        if not self.can_reserve(n):
+            return False
+        self.reserved += n
+        return True
+
+    def alloc_one(self) -> int:
+        """Take one page against an existing reservation (refcount 1)."""
+        if not self._free or self.reserved <= 0:
+            raise RuntimeError("BlockAllocator: alloc_one without a "
+                               "backed reservation")
+        self.reserved -= 1
+        b = self._free.pop()
+        self.refcount[b] = 1
+        return b
+
+    def share(self, block: int) -> None:
+        """Another table row now references ``block``."""
+        if self.refcount.get(block, 0) <= 0:
+            raise RuntimeError(f"BlockAllocator: share of unheld block {block}")
+        self.refcount[block] += 1
+
+    def lookup(self, digest: int, check: tuple) -> Optional[int]:
+        """The resident block of a prefix-page digest, or None on a miss
+        or a verified collision (check mismatch)."""
+        b = self._by_digest.get(digest)
+        if b is None or self._entries[b][1] != check:
+            return None
+        return b
+
+    def register(self, digest: int, check: tuple, block: int) -> bool:
+        """Advertise ``block`` as holding prefix page ``digest``; the
+        first registration wins."""
+        if digest in self._by_digest or block in self._entries:
+            return False
+        self._by_digest[digest] = block
+        self._entries[block] = (digest, check)
+        return True
+
+    def deregister(self, block: int) -> None:
+        ent = self._entries.pop(block, None)
+        if ent is not None:
+            self._by_digest.pop(ent[0], None)
+
+    def free(self, blocks: List[int], unreserve: int = 0) -> List[int]:
+        """Drop one reference per listed block; returns the blocks whose
+        refcount reached zero (back on the free list, to be scrubbed)."""
+        freed: List[int] = []
+        for b in blocks:
+            rc = self.refcount.get(b, 0)
+            if rc <= 0:
+                raise RuntimeError(f"BlockAllocator: double free of [{b}]")
+            if rc == 1:
+                del self.refcount[b]
+                self.deregister(b)
+                self._free.append(b)
+                freed.append(b)
+            else:
+                self.refcount[b] = rc - 1
+        self.reserved -= unreserve
+        if self.reserved < 0 or self.n_free > self.num_blocks:
+            raise RuntimeError("BlockAllocator: accounting went negative")
+        return freed
+
+
+def _cache_leaves(caches):
+    """(leaf name, slot/block axis, tensor) for every cache leaf: prefix
+    layers are (slots|blocks, ...), stack layers carry a leading
+    n_periods axis first."""
+    for top, layers in caches.items():
+        axis = 1 if top == "stack" else 0
+        for layer in layers:
+            for name, leaf in layer.items():
+                yield name, axis, leaf
+
+
+def _clear_slot(caches, s: int, skip_pools: bool = False):
+    """Zero slot ``s`` in every per-slot cache leaf (positions to -1), in
+    place.  ``skip_pools=True`` (paged engines) leaves block pools alone:
+    they are indexed by block id, and recycled blocks are scrubbed by
+    ``make_clear_blocks`` instead."""
+    for name, axis, leaf in _cache_leaves(caches):
+        if skip_pools and name in POOL_LEAVES:
+            continue
+        leaf[(slice(None),) * axis + (s,)] = -1 if name == "pos" else 0
+    return caches
+
+
+def make_clear_blocks(cfg: ModelConfig):
+    """(caches, blocks) -> caches: scrub the given pool blocks in every
+    paged leaf (keys / values 0, positions -1), in place, so a recycled
+    block never leaks a stale key into its next owner."""
+    check_ported(cfg)
+
+    def clear_blocks(caches, blocks):
+        if len(blocks) == 0:
+            return caches
+        for name, axis, leaf in _cache_leaves(caches):
+            if name in POOL_LEAVES:
+                ids = torch.as_tensor(blocks, dtype=torch.long,
+                                      device=leaf.device)
+                leaf[(slice(None),) * axis + (ids,)] = -1 if name == "pos" else 0
+        return caches
+    return clear_blocks
+
+
+def _copy_block(caches, src: int, dst: int):
+    """Copy-on-write: duplicate pool page ``src`` into ``dst`` in every
+    paged leaf (keys, values, positions), in place."""
+    for name, axis, leaf in _cache_leaves(caches):
+        if name in POOL_LEAVES:
+            pre = (slice(None),) * axis
+            leaf[pre + (dst,)] = leaf[pre + (src,)]
+    return caches
+
+
+class ServingEngine:
+    """Fixed-slot continuous batching with chunked prefill and an optional
+    paged slot cache, as ``repro.serve.engine.ServingEngine``.
+
+    Admission runs a prompt through the shared slot cache in
+    ``ceil(S / chunk)`` batched steps (other slots masked with position
+    -1); each ``tick`` decodes one token for every active slot in one
+    step.  ``paged=True`` keeps K/V in per-layer pools of ``num_blocks``
+    pages addressed through a host ``(slots, ceil(cache_len / page))``
+    block table: a request reserves ``ceil((prompt + max_new) / page)``
+    pages at admission, takes them as it writes, and frees them when it
+    finishes (freed pages are scrubbed); a pool that cannot cover a
+    reservation backpressures the FIFO queue.  ``share_prefix=True``
+    attaches resident prompt-prefix pages by refcount (their prefill is
+    skipped) and copies a shared page before the first write into it.
+    ``use_kernel=True`` (paged only) runs decode attention through the
+    Hopper paged-decode kernel.  ``stats`` carries the JAX engine's keys;
+    the counters of features not ported yet stay 0.
+
+    The engine runs on ``device`` (cuda unless "cpu" is asked for); the
+    parameters must already live there."""
+
+    def __init__(self, params: dict, cfg: ModelConfig, *, slots: int = 4,
+                 cache_len: int = 512, chunk: int = 32, paged: bool = False,
+                 page_size: int = 16, num_blocks: Optional[int] = None,
+                 use_kernel: bool = False, share_prefix: bool = True,
+                 seed: int = 0, device: DeviceLike = None):
+        check_ported(cfg)
+        if use_kernel and not paged:
+            raise ValueError(
+                "ServingEngine: use_kernel=True requires paged=True — the "
+                "paged-decode kernel reads the block-table pool (dense "
+                "rings keep the scan path)")
+        self.device = resolve_device(device)
+        pdev = device_of(params)
+        if pdev is not None and pdev.type != self.device.type:
+            raise ValueError(f"ServingEngine: params live on {pdev}, the "
+                             f"engine runs on {self.device}")
+        self.params = params
+        self.cfg = cfg
+        self.slots = slots
+        self.cache_len = cache_len
+        self.chunk = max(1, min(chunk, cache_len))
+        self.paged = paged
+        self.page_size = page_size
+        self.use_kernel = use_kernel
+        self._can_share = paged and share_prefix
+        if paged:
+            self.n_cols = max(1, -(-cache_len // page_size))
+            self.num_blocks = (num_blocks if num_blocks is not None
+                               else max(1, -(-slots * cache_len // page_size)))
+            self._alloc = BlockAllocator(self.num_blocks)
+            self._table = np.full((slots, self.n_cols), -1, np.int32)
+            self._slot_reserved = [0] * slots
+            self.caches = init_cache(cfg, slots, cache_len, paged=True,
+                                     page_size=page_size,
+                                     num_blocks=self.num_blocks,
+                                     device=self.device)
+        else:
+            self.num_blocks = 0
+            self._table = np.zeros((slots, 1), np.int32)   # dummy, unread
+            self.caches = init_cache(cfg, slots, cache_len,
+                                     device=self.device)
+        self._step_fn = make_engine_step(cfg, paged=paged,
+                                         use_kernel=use_kernel)
+        self._clear_blocks_fn = make_clear_blocks(cfg)
+        self._seen = torch.zeros((slots, cfg.vocab_size), dtype=torch.bool,
+                                 device=self.device)
+        self.active: List[Optional[Request]] = [None] * slots
+        self.positions = [0] * slots
+        self.queue: List[Request] = []
+        self.finished: List[Request] = []
+        # table columns of slot s currently mapped to a SHARED page
+        self._slot_shared: List[set] = [set() for _ in range(slots)]
+        self.stats = {"prefill_calls": 0, "decode_calls": 0, "admitted": 0,
+                      "backpressure": 0, "shared_pages": 0,
+                      "shared_tokens": 0, "cow_copies": 0, "preempted": 0,
+                      "exported": 0, "imported": 0, "import_rejects": 0,
+                      "imported_pages": 0, "deduped_pages": 0,
+                      "resumed_tokens": 0}
+        self._seed = seed
+        self._step_seq = 0
+        self._temp = np.zeros((slots,), np.float32)
+        self._topp = np.ones((slots,), np.float32)
+        self._topk = np.zeros((slots,), np.int32)
+        self._reppen = np.ones((slots,), np.float32)
+
+    # -- paged-pool bookkeeping (host side) -----------------------------
+
+    def _blocks_for(self, logical_len: int) -> int:
+        """Pool pages a request of total logical length ``logical_len``
+        can ever touch (bounded by the table width)."""
+        if not self.paged:
+            return 0
+        return min(-(-logical_len // self.page_size), self.n_cols)
+
+    # -- content-addressed prefix pages ---------------------------------
+
+    @staticmethod
+    def _digest(payload) -> int:
+        """Digest of one prefix page: the payload chains the parent page's
+        digest with this page's tokens."""
+        return hash(payload)
+
+    def prefix_digests(self, prompt: List[int]) -> List[int]:
+        """Chain digests of every FULL page of ``prompt``."""
+        P = self.page_size
+        out: List[int] = []
+        prev = 0
+        for i in range(len(prompt) // P):
+            prev = self._digest((prev, tuple(prompt[i * P:(i + 1) * P])))
+            out.append(prev)
+        return out
+
+    def _match_prefix(self, prompt: List[int]):
+        """Longest resident shared prefix of ``prompt``: (shared_tokens,
+        full_hits [(col, block)], partial_hit (col, block, covered) or
+        None) — a registered PARTIAL page may extend the match past the
+        last full hit."""
+        P = self.page_size
+        S = len(prompt)
+        hits: List[Tuple[int, int]] = []
+        prev_d, prev_b = 0, -1
+        m = 0
+        for i in range(S // P):
+            page = tuple(prompt[i * P:(i + 1) * P])
+            d = self._digest((prev_d, page))
+            b = self._alloc.lookup(d, (prev_b, page))
+            if b is None:
+                break
+            hits.append((i, b))
+            prev_d, prev_b = d, b
+            m += 1
+        partial = None
+        best = 0
+        for j in range(m * P + 1, min(S, (m + 1) * P) + 1):
+            tail = tuple(prompt[m * P:j])
+            d = self._digest((prev_d, tail, "partial"))
+            b = self._alloc.lookup(d, (prev_b, tail, "partial"))
+            if b is not None and j > best:
+                partial, best = (m, b, j), j
+        return (best if partial else m * P), hits, partial
+
+    def _register_prefix(self, s: int, prompt: List[int]) -> None:
+        """Advertise slot ``s``'s freshly admitted prompt pages: every
+        FULL page under its chain digest, plus the trailing partial page."""
+        P = self.page_size
+        S = len(prompt)
+        prev_d, prev_b = 0, -1
+        for i in range(S // P):
+            page = tuple(prompt[i * P:(i + 1) * P])
+            d = self._digest((prev_d, page))
+            b = int(self._table[s, i])
+            self._alloc.register(d, (prev_b, page), b)
+            canon = self._alloc.lookup(d, (prev_b, page))
+            prev_d, prev_b = d, (canon if canon is not None else b)
+        if S % P:
+            tail = tuple(prompt[(S // P) * P:])
+            d = self._digest((prev_d, tail, "partial"))
+            self._alloc.register(d, (prev_b, tail, "partial"),
+                                 int(self._table[s, S // P]))
+
+    def _cow(self, s: int, c: int) -> None:
+        """Copy-on-write table column ``c`` of slot ``s``: a private page
+        against the slot's reservation, the shared page's contents copied
+        on the device, the table repointed, the shared reference dropped."""
+        old = int(self._table[s, c])
+        new = self._alloc.alloc_one()
+        self._slot_reserved[s] -= 1
+        _copy_block(self.caches, old, new)
+        self._table[s, c] = new
+        freed = self._alloc.free([old])
+        if freed:
+            raise RuntimeError("ServingEngine: CoW of an unshared page")
+        self._slot_shared[s].discard(c)
+        self.stats["cow_copies"] += 1
+
+    def _ensure_blocks(self, s: int, p_lo: int, p_hi: int) -> None:
+        """Make the table columns that writes at positions [p_lo, p_hi]
+        touch writable: allocate unmapped columns, copy shared pages
+        first, and deregister an owned page whose content will change."""
+        if not self.paged:
+            return
+        P = self.page_size
+        for c in range(p_lo // P, p_hi // P + 1):
+            b = int(self._table[s, c])
+            if b < 0:
+                self._table[s, c] = self._alloc.alloc_one()
+                self._slot_reserved[s] -= 1
+            elif self._can_share:
+                if self._alloc.refcount.get(b, 0) > 1:
+                    self._cow(s, c)
+                else:
+                    self._alloc.deregister(b)
+                    self._slot_shared[s].discard(c)
+
+    def _free_slot_blocks(self, s: int) -> None:
+        """Drop a finished slot's page references and unused reservation;
+        only pages whose refcount reached zero are scrubbed."""
+        if not self.paged:
+            return
+        blocks = [int(b) for b in self._table[s] if b >= 0]
+        scrub: List[int] = []
+        if blocks or self._slot_reserved[s]:
+            scrub = self._alloc.free(blocks, unreserve=self._slot_reserved[s])
+            self._slot_reserved[s] = 0
+        self._scrub_blocks(scrub)
+        self._table[s] = -1
+        self._slot_shared[s].clear()
+
+    def _scrub_blocks(self, scrub: List[int]) -> None:
+        """Zero recycled pool pages (keys 0, positions -1)."""
+        self.caches = self._clear_blocks_fn(self.caches, scrub)
+
+    def _release_slot(self, s: int) -> None:
+        """Vacate slot ``s``: free + scrub its pages and restore the greedy
+        sampling defaults (so an idle slot keeps the fast paths on)."""
+        self.active[s] = None
+        self._free_slot_blocks(s)
+        self._temp[s] = 0.0
+        self._topp[s] = 1.0
+        self._topk[s] = 0
+        self._reppen[s] = 1.0
+
+    def _table_arg(self) -> torch.Tensor:
+        return torch.from_numpy(self._table).to(self.device)
+
+    # -- request intake --------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        if not req.prompt:
+            raise ValueError(
+                f"ServingEngine: request {req.req_id} has an empty prompt — "
+                f"at least one prompt token is required to seed decoding")
+        if len(req.prompt) + req.max_new > self.cache_len:
+            raise ValueError(
+                f"ServingEngine: request {req.req_id} needs "
+                f"{len(req.prompt)} prompt + {req.max_new} new tokens but "
+                f"cache_len={self.cache_len}; full-attention caches must "
+                f"not wrap (raise cache_len or lower max_new)")
+        if self.paged:
+            need = self._blocks_for(len(req.prompt) + req.max_new)
+            if need > self.num_blocks:
+                raise ValueError(
+                    f"ServingEngine: request {req.req_id} needs {need} cache "
+                    f"pages but the pool has only {self.num_blocks} — it "
+                    f"could never be admitted (raise num_blocks)")
+        self.queue.append(req)
+
+    def warmup(self) -> None:
+        """Run the two engine shapes — the chunked-prefill step (slots,
+        chunk) and the decode tick (slots, 1) — with every position
+        masked (-1, a cache no-op) so one-time set-up (kernel build, BLAS
+        handles) happens ahead of traffic without touching engine state."""
+        for C in sorted({self.chunk, 1}):
+            toks = np.zeros((self.slots, C), np.int32)
+            pos = np.full((self.slots, C), -1, np.int32)
+            self._call_step(toks, pos)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- the serving loop ------------------------------------------------
+
+    def _call_step(self, toks: np.ndarray, pos: np.ndarray) -> torch.Tensor:
+        """One engine step; host operands move to the device once here.
+        The per-slot sampling keys are counters (slot seed, step)."""
+        keys = np.empty((self.slots, 2), np.uint32)
+        keys[:, 0] = np.arange(self._seed, self._seed + self.slots,
+                               dtype=np.uint32)
+        keys[:, 1] = np.uint32(self._step_seq)
+        self._step_seq += 1
+        nxt, self.caches, self._seen = self._step_fn(
+            self.params, self.caches, self._seen,
+            torch.from_numpy(toks).to(self.device),
+            torch.from_numpy(pos).to(self.device), self._table_arg(), keys,
+            self._temp, self._topp, self._topk, self._reppen)
+        return nxt
+
+    def _admit(self) -> None:
+        """Chunked-prefill admission of queued requests into free slots:
+        reserve the request's worst-case pages (a short pool stops the
+        FIFO queue: backpressure), attach its resident shared prefix
+        pages, then walk the rest of the prompt through the cache
+        ``chunk`` tokens per step.  At least the last prompt token always
+        runs (its logits seed decoding)."""
+        for s in range(self.slots):
+            if self.active[s] is None and self.queue:
+                req = self.queue[0]
+                full = req.prompt
+                S = len(full)
+                shared_tok, hits, partial = (
+                    self._match_prefix(full) if self._can_share
+                    else (0, [], None))
+                start = min(shared_tok, S - 1)
+                if self.paged:
+                    # reserve only unshared pages — but a shared page the
+                    # tail writes into still needs a page for its CoW
+                    untouched = sum(1 for (i, _) in hits
+                                    if (i + 1) * self.page_size <= start)
+                    need = self._blocks_for(S + req.max_new) - untouched
+                    if not self._alloc.reserve(need):
+                        self.stats["backpressure"] += 1
+                        break          # FIFO: later requests wait too
+                    self._slot_reserved[s] = need
+                self.queue.pop(0)
+                self.active[s] = req
+                _clear_slot(self.caches, s, skip_pools=self.paged)
+                self._seen[s] = False
+                self._temp[s] = req.temperature
+                self._topp[s] = req.top_p
+                self._topk[s] = req.top_k
+                self._reppen[s] = req.rep_penalty
+                attached = hits + ([partial[:2]] if partial else [])
+                for (c, b) in attached:
+                    self._table[s, c] = b
+                    self._alloc.share(b)
+                    self._slot_shared[s].add(c)
+                self.stats["shared_pages"] += len(attached)
+                self.stats["shared_tokens"] += start
+                prompt = np.asarray(full, np.int32)
+                nxt = None
+                for c0 in range(start, S, self.chunk):
+                    piece = prompt[c0:c0 + self.chunk]
+                    C = len(piece)
+                    self._ensure_blocks(s, c0, c0 + C - 1)
+                    toks = np.zeros((self.slots, C), np.int32)
+                    toks[s] = piece
+                    pos = np.full((self.slots, C), -1, np.int32)
+                    pos[s] = np.arange(c0, c0 + C, dtype=np.int32)
+                    nxt = self._call_step(toks, pos)
+                    self.stats["prefill_calls"] += 1
+                if self._can_share:
+                    self._register_prefix(s, full)
+                self.positions[s] = S
+                req.pending = int(nxt[s, 0])
+                self.stats["admitted"] += 1
+
+    def tick(self) -> int:
+        """One engine iteration: admit, then feed each active slot's
+        pending token and compute the next for all slots in one step.
+        Returns the number of active slots."""
+        self._admit()
+        act = [s for s in range(self.slots) if self.active[s] is not None]
+        if not act:
+            return 0
+        toks = np.zeros((self.slots, 1), np.int32)
+        pos = np.full((self.slots, 1), -1, np.int32)
+        for s in act:
+            self._ensure_blocks(s, self.positions[s], self.positions[s])
+            toks[s, 0] = self.active[s].pending
+            pos[s, 0] = self.positions[s]
+        nxt = self._call_step(toks, pos).cpu().numpy()   # one copy, all slots
+        self.stats["decode_calls"] += 1
+        for s in act:
+            req = self.active[s]
+            req.generated.append(req.pending)
+            req.pending = int(nxt[s, 0])
+            self.positions[s] += 1
+            if len(req.generated) >= req.max_new:
+                req.done = True
+                self.finished.append(req)
+                self._release_slot(s)
+        return len(act)
+
+    def run(self, max_ticks: int = 10_000) -> List[Request]:
+        for _ in range(max_ticks):
+            if not self.tick() and not self.queue:
+                break
+        return self.finished

@@ -7,7 +7,8 @@ Needs one CUDA card and the repository's sources beside this file; it
 imports ``repro_torch``, torch and numpy only.  Phases, each fatal on
 failure:
 
-1. build every kernel of ``src/repro_torch/kernels/csrc`` with nvcc;
+1. build every kernel of ``src/repro_torch/kernels/csrc`` with nvcc and
+   print each instance's registers and spilled bytes;
 2. hold each kernel against its plain PyTorch version on the card over
    the sweep of ``tests/test_paged_kernel.py`` plus the qwen3-8b decode
    shape (bf16 within 2e-2, f32 within 1e-4 — the sums run in another
@@ -23,7 +24,30 @@ failure:
 4. time serving (CUDA events around each engine step) and the kernel at
    the served shape beside its bound, its plain version and
    ``F.scaled_dot_product_attention`` on the gathered K/V (a yardstick
-   only; the port never calls it).
+   only; the port never calls it);
+5. hold the ``rwkv_scan`` kernel against its plain version over the sweep
+   of ``tests/test_kernels.py::test_rwkv_scan_vs_ref`` (zero state), with
+   a nonzero initial state and the final state returned (S = 1, 150),
+   and at the two served shapes (a decode tick, B=8 S=1 H=64 hd=64, and
+   a 128-token prefill chunk with one live row), state written in place;
+   bf16 output within 2e-2, f32 output and state within 1e-4, rows
+   flagged idle keep their state bit for bit;
+6. free qwen3-8b, then serve rwkv6-7b at full width through the same
+   engine: 16 requests of 32..600 tokens plus one of 1,500 tokens (above
+   cache_len: only an attention-free model admits it), two sampled.
+   Every RWKV time-mix must have gone through the kernel (launches ==
+   (prefill_calls + decode_calls) x 32) and no page may be shared.  On
+   a served state, one decode tick (8 live slots) and one 128-token
+   prefill chunk (one live slot) go through each of the 32 layers'
+   mixers by the kernel and by the plain scan on the same input
+   (outputs within 2e-2 of their scale, states within 1e-4, shifts bit
+   for bit), and through the whole model by both paths in float32
+   activations (bf16 weights upcast exactly, TF32 off): the live slots'
+   logits must agree within 2e-2 of the logit scale with equal greedy
+   tokens, and idle slots' state and shift stay unchanged bit for bit;
+7. time rwkv serving and the kernel at both served shapes beside its
+   bound and its plain version (no single PyTorch call computes the wkv
+   recurrence, so there is no library time).
 
 Output: human-readable lines, then one JSON line ``{"kernels": [...]}``,
 the card's name and power limit from nvidia-smi, and last
@@ -33,7 +57,9 @@ repository's sources, it exits nonzero and prints no result.
 from __future__ import annotations
 
 import copy
+import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -45,11 +71,32 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                # dense tensor-core peak, same source
+F32_FLOPS = 67e12                  # float32 outside the tensor cores, same
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 
 def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def ptxas_summary(log: str):
+    """(kernel instance, registers, spilled bytes) from nvcc -Xptxas=-v
+    output; the instance is the kernel's name and its mangled template
+    arguments."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"entry function '\w*?\d+([a-z_]+_kernel)I(\w*?)EEv",
+                      line)
+        if m:
+            name, spill = f"{m.group(1)}<{m.group(2)}>", 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
 
 
 def card_line() -> str:
@@ -208,7 +255,29 @@ def time_steps(eng):
     return rec
 
 
-def phase_serve(fwd):
+def reset_counts(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def serving_times(rec, wall):
+    """Prefill / decode rates from the CUDA-event records of a served run,
+    its wall time and the peak device memory; printed and returned."""
+    pre = [(a.elapsed_time(b), n) for a, b, S, n in rec if S > 1]
+    dec = [(a.elapsed_time(b), n) for a, b, S, n in rec if S == 1]
+    timing = {
+        "prefill_tok_s": sum(n for _, n in pre) / sum(t for t, _ in pre) * 1e3,
+        "decode_tok_s": sum(n for _, n in dec) / sum(t for t, _ in dec) * 1e3,
+        "ms_per_decode_tick": sum(t for t, _ in dec) / len(dec),
+        "ms_per_prefill_call": sum(t for t, _ in pre) / len(pre),
+        "wall_s": wall,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print("serving: " + ", ".join(f"{k}={v}" for k, v in timing.items()))
+    return timing
+
+
+def phase_serve(fwd, kernels):
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import forward, init_params, unembed
     from repro_torch.serve.engine import Request, ServingEngine
@@ -230,7 +299,7 @@ def phase_serve(fwd):
         eng.submit(r)
     rec = time_steps(eng)
     torch.cuda.reset_peak_memory_stats()
-    fwd.launches = 0                     # count only the main path's run
+    reset_counts(kernels)                # count only the main path's run
     torch.cuda.synchronize()
     t0 = time.time()
     done = eng.run()
@@ -253,17 +322,7 @@ def phase_serve(fwd):
           f"ticks, {st['shared_pages']} shared pages, {st['cow_copies']} CoW, "
           f"{st['backpressure']} backpressure; kernel launches {launches} "
           f"= {st['decode_calls']} x {n_layers}")
-    pre = [(a.elapsed_time(b), n) for a, b, S, n in rec if S > 1]
-    dec = [(a.elapsed_time(b), n) for a, b, S, n in rec if S == 1]
-    timing = {
-        "prefill_tok_s": sum(n for _, n in pre) / sum(t for t, _ in pre) * 1e3,
-        "decode_tok_s": sum(n for _, n in dec) / sum(t for t, _ in dec) * 1e3,
-        "ms_per_decode_tick": sum(t for t, _ in dec) / len(dec),
-        "ms_per_prefill_call": sum(t for t, _ in pre) / len(pre),
-        "wall_s": wall,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-    }
-    print("serving: " + ", ".join(f"{k}={v}" for k, v in timing.items()))
+    timing = serving_times(rec, wall)
 
     # one decode tick on a served state: kernel path vs scan path logits
     del eng._call_step                   # back to the untimed step
@@ -420,6 +479,382 @@ def phase_kernel_times(fwd, ref):
             "max_abs_err": max_err}
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the rwkv_scan kernel against its plain version
+# ---------------------------------------------------------------------------
+
+RWKV_SWEEP = [(1, 32, 2, 16), (2, 64, 3, 16), (1, 40, 1, 32)]  # (B, S, H, hd)
+RWKV_DECODE = (8, 1, 64, 64)       # the served shapes of rwkv6-7b at 8 slots
+RWKV_PREFILL = (8, 128, 64, 64)    # (a 128-token chunk, one live row)
+RWKV_LIVE_ROW = 3
+
+
+def rwkv_case(B, S, H, hd, *, seed, dtype, w_dtype=None, state=False):
+    """r, k, v ~ N(0, 1), w = sigmoid(N(0, 1)) in (0, 1), u ~ 0.1 N(0, 1)
+    (as in ``tests/test_kernels.py``), optionally a N(0, 1) state."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g)
+    c = {n: rnd(B, S, H, hd).to(dtype).cuda() for n in "rkv"}
+    c["w"] = torch.sigmoid(rnd(B, S, H, hd)).to(w_dtype or dtype).cuda()
+    c["u"] = (rnd(H, hd) * 0.1).cuda()
+    if state:
+        c["s0"] = rnd(B, H, hd, hd).cuda()
+    return c
+
+
+def rwkv_args(c):
+    return [c[n] for n in "rkvwu"]
+
+
+def served_rwkv_case(shape, seed=0):
+    """The model path's operands: bf16 r / k / v, f32 w, a cached state,
+    and (prefill) one live row."""
+    c = rwkv_case(*shape, seed=seed, dtype=torch.bfloat16,
+                  w_dtype=torch.float32, state=True)
+    if shape[1] > 1:
+        c["rows"] = torch.zeros(shape[0], dtype=torch.bool, device="cuda")
+        c["rows"][RWKV_LIVE_ROW] = True
+    return c
+
+
+def _err(out, exp, tol, what):
+    err = (out.float() - exp.float()).abs().max().item()
+    try:
+        torch.testing.assert_close(out.float(), exp.float(), atol=tol,
+                                   rtol=tol)
+    except AssertionError as e:
+        fail(f"rwkv_scan {what}: {e}")
+    return err
+
+
+def phase_rwkv_vs_plain(fwd, ref):
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        for B, S, H, hd in RWKV_SWEEP:
+            c = rwkv_case(B, S, H, hd, seed=S, dtype=dtype)
+            out = fwd(*rwkv_args(c))
+            torch.cuda.synchronize()
+            worst[dname] = max(worst[dname], _err(
+                out, ref(*rwkv_args(c)), TOL[dname], f"sweep {dname}"))
+    print(f"rwkv_scan vs plain, sweep of test_rwkv_scan_vs_ref, zero state: "
+          f"max abs err bf16 {worst['bfloat16']:.3e} (tol 2e-2), f32 "
+          f"{worst['float32']:.3e} (tol 1e-4)")
+    tol = TOL["float32"]
+    for S in (1, 150):
+        for dtype in (torch.bfloat16, torch.float32):
+            c = rwkv_case(2, S, 4, 64, seed=S, dtype=dtype,
+                          w_dtype=torch.float32, state=True)
+            o, st = fwd(*rwkv_args(c), s0=c["s0"], out_dtype=torch.float32,
+                        return_state=True)
+            torch.cuda.synchronize()
+            eo, es = ref(*rwkv_args(c), s0=c["s0"], out_dtype=torch.float32,
+                         return_state=True)
+            eo_, es_ = _err(o, eo, tol, "o with s0"), _err(st, es, tol,
+                                                           "state")
+            print(f"rwkv_scan vs plain, s0 given, S={S}, {dtype}: max abs "
+                  f"err o {eo_:.3e}, state {es_:.3e} (tol 1e-4)")
+    errs = {}
+    for name, shape in (("decode", RWKV_DECODE), ("prefill", RWKV_PREFILL)):
+        c = served_rwkv_case(shape)
+        rows = c.get("rows")
+        buf = c["s0"].clone()                    # the state, in place
+        o = fwd(*rwkv_args(c), s0=buf, out_dtype=torch.float32, rows=rows,
+                state_out=buf)
+        torch.cuda.synchronize()
+        eo, es = ref(*rwkv_args(c), s0=c["s0"], out_dtype=torch.float32,
+                     return_state=True, rows=rows)
+        errs[name] = (_err(o, eo, tol, f"{name} o"),
+                      _err(buf, es, tol, f"{name} state"))
+        if rows is not None and not torch.equal(buf[~rows], c["s0"][~rows]):
+            fail(f"rwkv_scan {name}: an idle row's state changed")
+        print(f"rwkv_scan vs plain at the served {name} shape "
+              f"(B,S,H,hd)={shape}, state in place: max abs err o "
+              f"{errs[name][0]:.3e}, state {errs[name][1]:.3e} (tol 1e-4)"
+              + ("; idle rows' state unchanged bit for bit" if rows is not None
+                 else ""))
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: rwkv6-7b served at full width
+# ---------------------------------------------------------------------------
+
+def make_rwkv_requests(Request, vocab, seed=0, n=16):
+    """``n`` requests with prompts of 32..600 tokens, then (seed 0) one of
+    1,500 tokens: above cache_len 1024, which only an attention-free model
+    admits, and 11 full 128-token chunks plus a 92-token one.  Requests 3
+    and 10 sample.  No prompt leaves a 1-token prefill chunk."""
+    rng = np.random.default_rng(seed)
+    lens = [int(rng.integers(32, 601)) for _ in range(n)]
+    if seed == 0:
+        lens.append(1500)
+    reqs = []
+    for i, m in enumerate(lens):
+        m += m % 128 == 1
+        kw = (dict(temperature=0.8, top_p=0.95, top_k=50) if i in (3, 10)
+              else {})
+        reqs.append(Request(i, rng.integers(0, vocab, m).tolist(),
+                            max_new=32, **kw))
+    return reqs
+
+
+def f32_copy(tree):
+    """A float32 copy of a cache tree (bf16 leaves upcast, which is
+    exact; other leaves copied as they are)."""
+    if isinstance(tree, dict):
+        return {k: f32_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(f32_copy(v) for v in tree)
+    if torch.is_tensor(tree):
+        return (tree.to(torch.float32, copy=True) if tree.is_floating_point()
+                else tree.clone())
+    return tree
+
+
+def phase_serve_rwkv(fwd, kernels):
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import ffn_apply, rmsnorm
+    from repro_torch.models.transformer import (_period, embed_inputs,
+                                                forward, init_params, unembed)
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    cfg = get_config("rwkv6-7b")
+    t0 = time.time()
+    params = init_params(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"rwkv6-7b: {n_params / 1e9:.3f} B parameters drawn on the card "
+          f"in {time.time() - t0:.1f}s ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.rwkv_n_heads} heads of {cfg.rwkv_head_dim})")
+    eng = ServingEngine(params, cfg, slots=8, cache_len=1024, chunk=128,
+                        paged=True, use_kernel=True, device="cuda")
+    t0 = time.time()
+    eng.warmup()
+    print(f"warmup: {time.time() - t0:.1f}s")
+    reqs = make_rwkv_requests(Request, cfg.vocab_size)
+    for r in reqs:
+        eng.submit(r)                    # 1,500 > cache_len: admitted
+    rec = time_steps(eng)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)                # count only the main path's run
+    torch.cuda.synchronize()
+    t0 = time.time()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = fwd.launches
+    st = eng.stats
+    calls = st["prefill_calls"] + st["decode_calls"]
+    if len(done) != len(reqs) or any(len(r.generated) != 32 for r in done):
+        fail("not every rwkv request finished with 32 tokens")
+    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.generated):
+        fail("a generated token lies outside the vocabulary")
+    if st["shared_pages"] != 0:
+        fail("an attention-free engine shared a page")
+    if launches != calls * cfg.n_layers:
+        fail(f"rwkv_scan launches {launches} != (prefill_calls "
+             f"{st['prefill_calls']} + decode_calls {st['decode_calls']}) x "
+             f"{cfg.n_layers}")
+    longest = max(len(r.prompt) for r in done)
+    print(f"served {len(done)} requests x 32 tokens (longest prompt "
+          f"{longest} > cache_len {eng.cache_len}) in {wall:.2f}s: "
+          f"{st['prefill_calls']} prefill calls, {st['decode_calls']} decode "
+          f"ticks, {st['shared_pages']} shared pages; rwkv_scan launches "
+          f"{launches} = {calls} x {cfg.n_layers}")
+    timing = serving_times(rec, wall)
+
+    # a served state: 8 new requests admitted through the kernel path
+    del eng._call_step                   # back to the untimed step
+    for r in make_rwkv_requests(Request, cfg.vocab_size, seed=1, n=8):
+        eng.submit(r)
+    eng._admit()
+
+    # float32 activations: the bf16 weights are upcast in each matmul
+    # (exactly), and TF32 is off, so the two paths differ by float32
+    # roundings only
+    params32 = dict(params, embed=params["embed"].float())
+
+    def step_logits(caches, toks, pos, use_kernel):
+        h, _, _ = forward(params32, cfg, {"tokens": toks}, caches=caches,
+                          positions=pos, masked_slots=True,
+                          compute_logits=False, use_kernel=use_kernel)
+        return unembed(params32, cfg, h[:, -1:, :])[:, 0]
+
+    def end_to_end(toks, pos, what):
+        """One step of the whole model through the kernel path and through
+        the plain path, each from a float32 copy of the served caches.  The
+        live rows' logits must agree within 2e-2 of the logit scale and
+        give the same greedy token; rows that are not live keep their
+        state and shift bit for bit on both paths."""
+        live = (pos >= 0).any(dim=1)
+        before = f32_copy(eng.caches)
+        ck, cp = f32_copy(eng.caches), f32_copy(eng.caches)
+        lk = step_logits(ck, toks, pos, True)[live]
+        lp = step_logits(cp, toks, pos, False)[live]
+        n = int(live.sum())
+        if lk.shape != (n, cfg.vocab_size) or not torch.isfinite(lk).all():
+            fail(f"{what}: logits are not finite ({n}, vocab)")
+        err = (lk - lp).abs().max().item()
+        scale = max(1.0, lp.abs().max().item())
+        top2 = lp.topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).min().item()
+        same = int((lk.argmax(-1) == lp.argmax(-1)).sum())
+        print(f"{what}, whole model in float32: max |dlogit| kernel vs plain "
+              f"{err:.4e} over {n} live slot(s) at logit scale {scale:.3f} "
+              f"(tol {2e-2 * scale:.4f}); greedy equal in {same}/{n} "
+              f"(smallest top-2 margin {margin:.4e})")
+        if err > 2e-2 * scale:
+            fail(f"{what}: kernel-path logits differ from the plain path by "
+                 f"{err} (tol {2e-2 * scale})")
+        if same != n:
+            fail(f"{what}: a live slot's greedy token differs")
+        idle = torch.nonzero(~live).flatten()
+        state_err = 0.0
+        for caches in (ck, cp):
+            for layer, old in zip(caches["stack"], before["stack"]):
+                for name in ("state", "shift"):
+                    if not torch.equal(layer[name][:, idle],
+                                       old[name][:, idle]):
+                        fail(f"{what}: an idle slot's {name} changed")
+        for a, b in zip(ck["stack"], cp["stack"]):
+            state_err = max(state_err, (
+                (a["state"][:, live] - b["state"][:, live]).abs().max()
+                / b["state"][:, live].abs().max()).item())
+        print(f"{what}: live slots' state kernel vs plain max err "
+              f"{state_err:.3e} of its scale"
+              + (f"; {len(idle)} idle slots' state and shift unchanged bit "
+                 f"for bit (kernel and plain paths)" if len(idle) else ""))
+
+    def layerwise(toks, pos, what):
+        """Each layer's RWKV mixer through the kernel and through the plain
+        scan, on the same input: the plain path's residual stream feeds
+        both, so no difference is carried from one layer to the next.
+        Outputs (bf16) within 2e-2 of their scale, states (f32) within
+        1e-4 of theirs, shifts bit for bit."""
+        ck, cp = copy.deepcopy(eng.caches), copy.deepcopy(eng.caches)
+        valid = (pos >= 0).any(dim=1)
+        x = embed_inputs(params, cfg, {"tokens": toks})
+        worst_o = worst_s = 0.0
+        for stack in cfg.stacks:
+            for t in range(stack.n_periods):
+                pp = _period(params["stack"], t)
+                pk, pq = _period(ck["stack"], t), _period(cp["stack"], t)
+                for j in range(len(stack.period)):
+                    h = rmsnorm(x, pp[j]["norm1"], cfg.norm_eps)
+                    ok, _ = ssm.rwkv_apply(pp[j]["mixer"], h, cfg,
+                                           cache=pk[j], valid=valid,
+                                           use_kernel=True)
+                    op, _ = ssm.rwkv_apply(pp[j]["mixer"], h, cfg,
+                                           cache=pq[j], valid=valid,
+                                           use_kernel=False)
+                    e_o = ((ok.float() - op.float()).abs().max()
+                           / op.float().abs().max().clamp(min=1e-30)).item()
+                    e_s = ((pk[j]["state"] - pq[j]["state"]).abs().max()
+                           / pq[j]["state"].abs().max().clamp(min=1e-30)
+                           ).item()
+                    if (e_o > 2e-2 or e_s > 1e-4
+                            or not torch.equal(pk[j]["shift"],
+                                               pq[j]["shift"])):
+                        fail(f"{what}: period {t} layer {j}: kernel vs "
+                             f"plain mixer output {e_o}, state {e_s} of "
+                             f"scale, or the shift differs")
+                    worst_o, worst_s = max(worst_o, e_o), max(worst_s, e_s)
+                    x = x + op
+                    x = x + ffn_apply(pp[j]["ffn"],
+                                      rmsnorm(x, pp[j]["norm2"], cfg.norm_eps))
+        print(f"{what}, layer by layer on the same input ({cfg.n_layers} "
+              f"layers): kernel vs plain mixer output max err {worst_o:.3e} "
+              f"of its scale (tol 2e-2), state {worst_s:.3e} (tol 1e-4), "
+              f"shift bit for bit")
+
+    # one decode tick, every slot live
+    toks = torch.tensor([[eng.active[s].pending] for s in range(8)],
+                        dtype=torch.int32, device="cuda")
+    pos = torch.tensor([[eng.positions[s]] for s in range(8)],
+                       dtype=torch.int32, device="cuda")
+    layerwise(toks, pos, "decode tick")
+    end_to_end(toks, pos, "decode tick")
+    # one 128-token prefill chunk into slot RWKV_LIVE_ROW, the others idle
+    s = RWKV_LIVE_ROW
+    g = torch.Generator().manual_seed(2)
+    toks = torch.zeros((8, 128), dtype=torch.int32)
+    toks[s] = torch.randint(0, cfg.vocab_size, (128,), generator=g)
+    pos = torch.full((8, 128), -1, dtype=torch.int32)
+    pos[s] = torch.arange(eng.positions[s], eng.positions[s] + 128)
+    toks, pos = toks.cuda(), pos.cuda()
+    layerwise(toks, pos, "prefill chunk")
+    end_to_end(toks, pos, "prefill chunk")
+    del params32
+    timing.update(profile_ticks(eng))
+    return launches, timing
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: rwkv_scan times at the served shapes
+# ---------------------------------------------------------------------------
+
+def rwkv_bound(c):
+    """Least time for one call on these operands: every input read once
+    (the state of every row, since every row's output needs it), the
+    output written once and the state of the updated rows written once;
+    float32 flops per (b, h, step): r.S is 2 per state element, the
+    update w*S + k v^T is 3 (a multiply and an fma), and the bonus term
+    v_j * sum_i r_i u_i k_i is rank one, 5 per head dim."""
+    B, S, H, hd = c["r"].shape
+    rows = B if "rows" not in c else int(c["rows"].sum())
+    n = B * S * H * hd
+    byts = (n * (3 * c["r"].element_size() + c["w"].element_size())
+            + c["u"].numel() * 4 + B * H * hd * hd * 4
+            + rows * H * hd * hd * 4
+            + n * 4 + (B if "rows" in c else 0))          # o in f32
+    flops = B * S * H * hd * (5 * hd + 5)
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), byts, flops
+
+
+def phase_rwkv_kernel_times(fwd, ref):
+    out = {}
+    for name, shape, n_bufs, reps, plain_reps in (
+            ("decode", RWKV_DECODE, 8, 400, 20),
+            ("prefill", RWKV_PREFILL, 2, 50, 3)):
+        # enough states / operands in turn that L2 (50 MB) holds none of
+        # the previous launch's, as in serving (each layer has its own)
+        cases = [served_rwkv_case(shape, seed=i) for i in range(n_bufs)]
+
+        def kern(i):
+            c = cases[i % n_bufs]
+            return fwd(*rwkv_args(c), s0=c["s0"], out_dtype=torch.float32,
+                       rows=c.get("rows"), state_out=c["s0"])
+
+        def plain(i):
+            c = cases[i % n_bufs]
+            return ref(*rwkv_args(c), s0=c["s0"], out_dtype=torch.float32,
+                       return_state=True, rows=c.get("rows"))
+        for i in range(3):
+            kern(i)
+        ms = event_ms(kern, reps)
+        plain_ms = event_ms(plain, plain_reps)
+        bound_ms, bound_by, byts, flops = rwkv_bound(cases[0])
+        c = served_rwkv_case(shape, seed=99)
+        o = fwd(*rwkv_args(c), s0=c["s0"], out_dtype=torch.float32,
+                rows=c.get("rows"))
+        eo = ref(*rwkv_args(c), s0=c["s0"], out_dtype=torch.float32)
+        err = (o - eo).abs().max().item()
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None,
+                     "max_abs_err": err}
+        print(f"rwkv_scan at the served {name} shape (B,S,H,hd)={shape}: "
+              f"kernel {ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by}: {byts / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP "
+              f"f32), plain {plain_ms * 1e3:.1f} us, library none")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -431,7 +866,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.paged_attention import paged_attention_fwd
-    from repro_torch.kernels.ref import paged_attention_ref
+    from repro_torch.kernels.ref import paged_attention_ref, rwkv_scan_ref
+    from repro_torch.kernels.rwkv_scan import rwkv_scan_fwd
+    kernels = (paged_attention_fwd, rwkv_scan_fwd)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -441,16 +878,37 @@ def main() -> int:
     t0 = time.time()
     libs = build.build_all()
     print(f"build: {len(libs)} kernel source(s) in {time.time() - t0:.1f}s")
+    for name, log in sorted(build.logs.items()):
+        print(f"ptxas {name}: " + "; ".join(
+            f"{inst} {regs} regs {spill} B spilled"
+            for inst, regs, spill in ptxas_summary(log)))
 
     phase_kernel_vs_plain(paged_attention_fwd, paged_attention_ref)
-    launches, _ = phase_serve(paged_attention_fwd)
-    times = phase_kernel_times(paged_attention_fwd, paged_attention_ref)
+    phase_rwkv_vs_plain(rwkv_scan_fwd, rwkv_scan_ref)
+    pa_launches, _ = phase_serve(paged_attention_fwd, kernels)
+    pa_times = phase_kernel_times(paged_attention_fwd, paged_attention_ref)
+    gc.collect()                         # qwen3-8b's weights go first
+    torch.cuda.empty_cache()
+    rw_launches, _ = phase_serve_rwkv(rwkv_scan_fwd, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rw_times = phase_rwkv_kernel_times(rwkv_scan_fwd, rwkv_scan_ref)
 
-    kernel = {"name": "paged_attention", "route": "cuda",
-              "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-              "replaces": "src/repro/kernels/paged_attention.py:201",
-              "launches": launches, **times}
-    print(json.dumps({"kernels": [kernel]}))
+    result = [
+        {"name": "paged_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:201",
+         "launches": pa_launches, **pa_times},
+        # the decode shape leads (every tick runs it); both shapes follow
+        {"name": "rwkv_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rwkv_scan.cu",
+         "replaces": "src/repro/kernels/ssm_scan.py:131",
+         "launches": rw_launches, **rw_times["decode"],
+         "shapes": {"decode B=8 S=1 H=64 hd=64": rw_times["decode"],
+                    "prefill B=8 S=128 H=64 hd=64, 1 live row":
+                        rw_times["prefill"]}},
+    ]
+    print(json.dumps({"kernels": result}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-"""Architecture registry of the port: the dense full-attention configs
-whose serving path is ported (``gpt3-24l``, ``qwen3-8b``,
-``llama3-405b``, ``qwen1.5-32b``).
+"""Architecture registry of the port: the configs whose serving path is
+ported — the dense full-attention ones (``gpt3-24l``, ``qwen3-8b``,
+``llama3-405b``, ``qwen1.5-32b``) and the attention-free ``rwkv6-7b``.
 
 Each ``<arch>.py`` module exports ``CONFIG`` (the exact spec, source
 cited) and ``SMOKE`` (a reduced same-family variant runnable on the CPU).
@@ -19,12 +19,13 @@ _ARCH_MODULES = {
     "gpt3-24l": "gpt3_24l",
     "llama3-405b": "llama3_405b",
     "qwen1.5-32b": "qwen1_5_32b",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 # archs of the JAX package whose mixers / FFNs are not ported yet
 _NOT_YET_PORTED = ("jamba-1.5-large-398b", "gemma3-12b",
                    "llava-next-mistral-7b", "musicgen-medium",
-                   "qwen3-moe-235b-a22b", "rwkv6-7b", "deepseek-v3-671b",
+                   "qwen3-moe-235b-a22b", "deepseek-v3-671b",
                    "bert-large")
 
 ALL_ARCHS: Tuple[str, ...] = tuple(_ARCH_MODULES)

@@ -22,9 +22,12 @@ from typing import Dict, List, Optional, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# compiler output of the builds this process ran (ptxas reports each
+# kernel's registers, shared memory and spills)
+logs: Dict[str, str] = {}
 
 
 def sources() -> List[str]:
@@ -69,6 +72,7 @@ def _finish(name: str, proc: Optional[subprocess.Popen],
     if proc is None:
         return
     log, _ = proc.communicate()
+    logs[name] = log
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")

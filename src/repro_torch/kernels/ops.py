@@ -9,6 +9,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.paged_attention import paged_attention_fwd
+from repro_torch.kernels.rwkv_scan import rwkv_scan_fwd
 
 
 def paged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -25,3 +26,20 @@ def paged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return paged_attention_fwd(q, k, v, pos, table, q_pos, scale=scale,
                                window=window, softcap=softcap,
                                q_extra=q_extra, k_extra=k_extra)
+
+
+def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor, *,
+              s0: Optional[torch.Tensor] = None, chunk: int = 64,
+              out_dtype: Optional[torch.dtype] = None,
+              return_state: bool = False,
+              rows: Optional[torch.Tensor] = None,
+              state_out: Optional[torch.Tensor] = None):
+    """RWKV6 wkv: r,k,v,w (B,S,H,hd); u (H,hd) -> o (B,S,H,hd) [, final
+    state (B,H,hd,hd)].  With the defaults, the signature and result of
+    ``repro.kernels.ops.rwkv_scan``; ``s0`` / ``return_state`` /
+    ``state_out`` / ``rows`` carry a serving cache's state through it
+    (see ``kernels.rwkv_scan.rwkv_scan_fwd``)."""
+    return rwkv_scan_fwd(r, k, v, w, u, s0=s0, chunk=chunk,
+                         out_dtype=out_dtype, return_state=return_state,
+                         rows=rows, state_out=state_out)

@@ -72,3 +72,42 @@ def paged_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     out = acc / l.clamp(min=1e-30)
     return out.reshape(B, 1, Hq, Dv).to(q.dtype)
+
+
+def rwkv_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor, *,
+                  s0: Optional[torch.Tensor] = None,
+                  out_dtype: Optional[torch.dtype] = None,
+                  return_state: bool = False,
+                  rows: Optional[torch.Tensor] = None):
+    """RWKV6 wkv recurrence, one time step after another.
+
+    r, k, v, w: (B, S, H, hd); u: (H, hd) float32; s0: (B, H, hd, hd)
+    float32 [k-index, v-index] or None (zeros).  Per step, in float32:
+    ``o_t = r_t . (S + diag(u) k_t v_t^T)`` and
+    ``S <- diag(w_t) S + k_t v_t^T``.  Returns o (B, S, H, hd) in
+    ``out_dtype`` (default r.dtype), and the final state too when
+    ``return_state``.  ``rows`` (B,) bool: rows that are False return
+    ``s0`` as their final state (their outputs are still computed).
+
+    With ``s0=None`` and the default output type this is
+    ``repro.kernels.ref.rwkv_scan_ref`` (and the Pallas ``rwkv_scan``);
+    with ``s0`` and float32 output it is the JAX model's
+    ``_chunked_scan(_rwkv_step, s0, ...)``."""
+    B, S, H, hd = r.shape
+    st = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+          if s0 is None else s0.float())
+    uu = u.float()[None, :, :, None]
+    outs = []
+    for t in range(S):
+        r_t, k_t, v_t, w_t = (a[:, t].float() for a in (r, k, v, w))
+        kv = k_t[..., :, None] * v_t[..., None, :]           # (B,H,hd,hd)
+        outs.append(torch.einsum("bhi,bhij->bhj", r_t, st + uu * kv))
+        st = w_t[..., :, None] * st + kv
+    o = torch.stack(outs, dim=1).to(out_dtype or r.dtype)
+    if not return_state:
+        return o
+    if rows is not None:
+        st = torch.where(rows.reshape(B, 1, 1, 1), st,
+                         0.0 if s0 is None else s0)
+    return o, st

@@ -5,12 +5,14 @@ The flags are the single-engine flags of ``repro.launch.serve``:
 ``--paged`` (default on) stores KV through a block table with
 content-addressed prefix sharing (``--no-prefix-share`` turns it off,
 ``--prefix-tokens N`` prepends a shared system prompt); ``--kernel``
-decodes through the Hopper paged-decode kernel; ``--temperature`` /
+runs each mixer's Hopper kernel (paged decode attention, the RWKV
+recurrence in prefill and decode); ``--temperature`` /
 ``--top-p`` / ``--top-k`` / ``--rep-penalty`` choose tokens per slot;
 ``--warmup`` (default on) runs both engine shapes ahead of traffic.
 
     python -m repro_torch.launch.serve --arch qwen3-8b --kernel
     python -m repro_torch.launch.serve --device cpu --requests 6 --chunk 4
+    python -m repro_torch.launch.serve --device cpu --arch rwkv6-7b --kernel
 """
 from __future__ import annotations
 
@@ -59,9 +61,11 @@ def main(argv=None):
                     help="prepend this many shared system-prompt tokens "
                          "to every request (exercises prefix sharing)")
     ap.add_argument("--kernel", action="store_true",
-                    help="decode attention through the Hopper paged-decode "
-                         "kernel (paged mode only; its plain PyTorch "
-                         "version on the CPU)")
+                    help="run each mixer's Hopper kernel: decode attention "
+                         "through the paged-decode kernel, the RWKV "
+                         "recurrence (prefill and decode) through rwkv_scan "
+                         "(paged mode only; their plain PyTorch versions "
+                         "on the CPU)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="per-request sampling temperature (0 = greedy)")
     ap.add_argument("--top-p", type=float, default=1.0,

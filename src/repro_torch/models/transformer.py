@@ -1,4 +1,4 @@
-"""Decoder model of the port: dense full-attention layers with SwiGLU
+"""Decoder model of the port: full-attention or RWKV6 layers with SwiGLU
 FFNs, built from a ``ModelConfig`` like ``repro.models.transformer``.
 
 Parameters and decode caches are nested dicts under the JAX package's
@@ -15,7 +15,8 @@ import torch
 from torch import nn
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.models.config import ATTN, DENSE, ModelConfig
+from repro_torch.models import ssm
+from repro_torch.models.config import ATTN, DENSE, RWKV, ModelConfig
 from repro_torch.models.layers import (attn_apply, attn_init, cache_init,
                                        dense_init, embed_init, ffn_apply,
                                        ffn_init, paged_cache_init, rmsnorm,
@@ -23,10 +24,10 @@ from repro_torch.models.layers import (attn_apply, attn_init, cache_init,
 
 
 def _check_layer(spec) -> None:
-    if spec.mixer != ATTN or spec.ffn != DENSE:
+    if spec.mixer not in (ATTN, RWKV) or spec.ffn != DENSE:
         raise NotImplementedError(
-            f"repro_torch: layer {spec} is not ported yet (dense "
-            f"full-attention layers only)")
+            f"repro_torch: layer {spec} is not ported yet (full-attention "
+            f"and RWKV6 layers with dense FFNs only)")
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -45,9 +46,11 @@ def check_ported(cfg: ModelConfig) -> None:
 def layer_init(gen: torch.Generator, spec, cfg: ModelConfig, lead=(),
                device=None) -> dict:
     _check_layer(spec)
+    mixer = (ssm.rwkv_init(gen, cfg, lead, device) if spec.mixer == RWKV
+             else attn_init(gen, cfg, lead, device))
     return {"norm1": rmsnorm_init(cfg.d_model, lead, device),
             "norm2": rmsnorm_init(cfg.d_model, lead, device),
-            "mixer": attn_init(gen, cfg, lead, device),
+            "mixer": mixer,
             "ffn": ffn_init(gen, cfg, lead=lead, device=device)}
 
 
@@ -56,8 +59,11 @@ def layer_cache_init(spec, cfg: ModelConfig, batch: int, cache_len: int,
                      page_size: int = 16, num_blocks: int = 0, lead=(),
                      device=None) -> dict:
     """Dense per-slot KV cache, or (``paged=True``) a block pool of
-    ``num_blocks`` pages shared through the block table."""
+    ``num_blocks`` pages shared through the block table.  RWKV state is
+    per slot either way (a recurrent carry has no sequence axis to page)."""
     _check_layer(spec)
+    if spec.mixer == RWKV:
+        return ssm.rwkv_cache_init(batch, cfg, dtype, lead, device)
     if paged:
         return paged_cache_init(num_blocks, page_size, cfg.n_kv_heads,
                                 cfg.head_dim, dtype, lead, device)
@@ -69,14 +75,27 @@ def layer_apply(lp: dict, spec, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[dict], *,
                 kv_chunk: int = 1024, masked_slots: bool = False,
                 block_table=None, use_kernel: bool = False):
-    """Pre-norm residual block: x + attn(norm1(x)), then + ffn(norm2(x)).
-    Returns (x, cache, aux_loss); the cache is written in place."""
+    """Pre-norm residual block: x + mixer(norm1(x)), then + ffn(norm2(x)).
+    Returns (x, cache, aux_loss); the cache is written in place.
+
+    ``masked_slots``: rows whose positions are all < 0 (idle serving
+    slots) keep their cache bit for bit — attention caches entry-wise
+    through the masked cache write, RWKV state and shift row-wise (they
+    ran the scan on padding).  ``use_kernel``: paged single-token decode
+    attention runs the paged-decode kernel; the RWKV recurrence runs the
+    ``rwkv_scan`` kernel at every S."""
     _check_layer(spec)
     h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
-    h, cache = attn_apply(lp["mixer"], h, cfg, positions=positions,
-                          cache=cache, kv_chunk=kv_chunk,
-                          masked_slots=masked_slots, table=block_table,
-                          use_kernel=use_kernel)
+    if spec.mixer == RWKV:
+        valid = ((positions >= 0).any(dim=1)
+                 if masked_slots and cache is not None else None)
+        h, cache = ssm.rwkv_apply(lp["mixer"], h, cfg, cache=cache,
+                                  valid=valid, use_kernel=use_kernel)
+    else:
+        h, cache = attn_apply(lp["mixer"], h, cfg, positions=positions,
+                              cache=cache, kv_chunk=kv_chunk,
+                              masked_slots=masked_slots, table=block_table,
+                              use_kernel=use_kernel)
     x = x + h
     h = rmsnorm(x, lp["norm2"], cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -176,8 +195,9 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     """Run the decoder.  Returns (logits_or_hidden, aux_loss, caches);
     ``caches`` is updated in place and returned.  ``positions`` defaults
     to arange(S) per row.  ``block_table`` marks ``caches`` as paged
-    pools; ``use_kernel=True`` runs paged single-token decode attention
-    through the Hopper kernel."""
+    pools; ``use_kernel=True`` runs each mixer's Hopper kernel where the
+    port has one (paged single-token decode attention, the RWKV
+    recurrence)."""
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     if positions is None:

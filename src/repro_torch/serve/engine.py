@@ -1,7 +1,7 @@
 """Serving engine of the port: chunked-prefill continuous batching over a
 dense or paged (block-table) KV cache, with content-addressed prefix
 sharing and copy-on-write pages — the counterpart of
-``repro.serve.engine`` for dense full-attention models.
+``repro.serve.engine`` for full-attention and RWKV6 models.
 
 One step function (``make_engine_step``) serves both chunked prefill
 (S = chunk) and the batched decode tick (S = 1).  Only the last position
@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, device_of, resolve_device
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ATTN, MAMBA, RWKV, ModelConfig
 from repro_torch.models.layers import NEG_INF
 from repro_torch.models.transformer import (check_ported, forward, init_cache,
                                             unembed)
@@ -98,8 +98,8 @@ def make_engine_step(cfg: ModelConfig, *, kv_chunk: int = 1024,
     are the engine's host numpy arrays, so the penalty and sampling
     branches are decided on the host without a device sync.  Rows with
     position -1 are cache no-ops.  ``caches`` and ``seen`` are updated in
-    place.  ``use_kernel=True`` runs paged S=1 decode attention through
-    the Hopper paged-decode kernel."""
+    place.  ``use_kernel=True`` runs each mixer's Hopper kernel where the
+    port has one: paged S=1 decode attention and the RWKV recurrence."""
     def engine_step(params, caches, seen, tokens, positions, table,
                     rng_keys, temperature, top_p, top_k, rep_penalty):
         B = tokens.shape[0]
@@ -282,10 +282,11 @@ def _cache_leaves(caches):
 
 
 def _clear_slot(caches, s: int, skip_pools: bool = False):
-    """Zero slot ``s`` in every per-slot cache leaf (positions to -1), in
-    place.  ``skip_pools=True`` (paged engines) leaves block pools alone:
-    they are indexed by block id, and recycled blocks are scrubbed by
-    ``make_clear_blocks`` instead."""
+    """Zero slot ``s`` in every per-slot cache leaf (positions to -1;
+    RWKV ``state`` and ``shift`` to 0), in place.  ``skip_pools=True``
+    (paged engines) leaves block pools alone: they are indexed by block
+    id, and recycled blocks are scrubbed by ``make_clear_blocks``
+    instead."""
     for name, axis, leaf in _cache_leaves(caches):
         if skip_pools and name in POOL_LEAVES:
             continue
@@ -336,9 +337,14 @@ class ServingEngine:
     reservation backpressures the FIFO queue.  ``share_prefix=True``
     attaches resident prompt-prefix pages by refcount (their prefill is
     skipped) and copies a shared page before the first write into it.
-    ``use_kernel=True`` (paged only) runs decode attention through the
-    Hopper paged-decode kernel.  ``stats`` carries the JAX engine's keys;
-    the counters of features not ported yet stay 0.
+    ``use_kernel=True`` (paged only) runs each mixer's Hopper kernel where
+    the port has one: decode attention through the paged-decode kernel,
+    the RWKV recurrence (prefill and decode) through ``rwkv_scan``.  Both
+    compute what the plain path computes.  Attention-free models keep
+    their recurrent state per slot: they take no pool pages, share no
+    prefix, and admit prompts longer than ``cache_len``.  ``stats``
+    carries the JAX engine's keys; the counters of features not ported
+    yet stay 0.
 
     The engine runs on ``device`` (cuda unless "cpu" is asked for); the
     parameters must already live there."""
@@ -353,7 +359,7 @@ class ServingEngine:
             raise ValueError(
                 "ServingEngine: use_kernel=True requires paged=True — the "
                 "paged-decode kernel reads the block-table pool (dense "
-                "rings keep the scan path)")
+                "engines keep the plain paths)")
         self.device = resolve_device(device)
         pdev = device_of(params)
         if pdev is not None and pdev.type != self.device.type:
@@ -367,7 +373,14 @@ class ServingEngine:
         self.paged = paged
         self.page_size = page_size
         self.use_kernel = use_kernel
-        self._can_share = paged and share_prefix
+        # only full-attention caches bound the context; prefix sharing
+        # holds only where skipping a page's prefill leaves no other state
+        # stale, and a recurrent carry would still need the skipped tokens
+        specs = tuple(cfg.prefix_layers) + tuple(cfg.period)
+        self._has_attn = any(sp.mixer == ATTN for sp in specs)
+        self._has_recurrent = any(sp.mixer in (MAMBA, RWKV) for sp in specs)
+        self._can_share = (paged and share_prefix and self._has_attn
+                           and not self._has_recurrent)
         if paged:
             self.n_cols = max(1, -(-cache_len // page_size))
             self.num_blocks = (num_blocks if num_blocks is not None
@@ -412,8 +425,9 @@ class ServingEngine:
 
     def _blocks_for(self, logical_len: int) -> int:
         """Pool pages a request of total logical length ``logical_len``
-        can ever touch (bounded by the table width)."""
-        if not self.paged:
+        can ever touch (bounded by the table width); zero without
+        full-attention layers (recurrent state is per slot)."""
+        if not self.paged or not self._has_attn:
             return 0
         return min(-(-logical_len // self.page_size), self.n_cols)
 
@@ -501,8 +515,9 @@ class ServingEngine:
     def _ensure_blocks(self, s: int, p_lo: int, p_hi: int) -> None:
         """Make the table columns that writes at positions [p_lo, p_hi]
         touch writable: allocate unmapped columns, copy shared pages
-        first, and deregister an owned page whose content will change."""
-        if not self.paged:
+        first, and deregister an owned page whose content will change.
+        Only attention layers read the table."""
+        if not self.paged or not self._has_attn:
             return
         P = self.page_size
         for c in range(p_lo // P, p_hi // P + 1):
@@ -555,7 +570,9 @@ class ServingEngine:
             raise ValueError(
                 f"ServingEngine: request {req.req_id} has an empty prompt — "
                 f"at least one prompt token is required to seed decoding")
-        if len(req.prompt) + req.max_new > self.cache_len:
+        if self._has_attn and len(req.prompt) + req.max_new > self.cache_len:
+            # recurrent state has no length: only full-attention caches
+            # bound the context
             raise ValueError(
                 f"ServingEngine: request {req.req_id} needs "
                 f"{len(req.prompt)} prompt + {req.max_new} new tokens but "

@@ -260,11 +260,14 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 assert not any(k.split(".")[0] in ("jax", "repro") for k in sys.modules)
-print(len(mods))
+print(" ".join(mods))
 """
     src = Path(__file__).resolve().parents[1] / "src"
     env = dict(os.environ, PYTHONPATH=str(src))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 12
+    mods = set(proc.stdout.split())
+    assert len(mods) >= 22
+    assert {"repro_torch.models.ssm", "repro_torch.kernels.rwkv_scan",
+            "repro_torch.configs.rwkv6_7b"} <= mods

@@ -47,7 +47,27 @@ failure:
    tokens, and idle slots' state and shift stay unchanged bit for bit;
 7. time rwkv serving and the kernel at both served shapes beside its
    bound and its plain version (no single PyTorch call computes the wkv
-   recurrence, so there is no library time).
+   recurrence, so there is no library time);
+8. hold the flash-attention kernel against its plain version over the
+   sweep of ``tests/test_kernels.py::test_flash_attention_vs_ref`` (plus
+   T > S) and at the training shape of qwen3-8b (B=2, S=4096, GQA 32 / 8
+   heads of 128) with and without a 1,024-token window, each in bf16
+   and f32: output bf16 within 2e-2, f32 within 1e-4, logsumexp within
+   1e-4; then autograd
+   through the port's flash attention (kernel forward, plain blocked
+   backward) against autograd through the plain version, f32, each
+   gradient within 1e-4 of its scale;
+9. train qwen3-8b at full width, 8 of its 36 layers, through the port's
+   ``Trainer`` (adamw, cosine_lr, full remat, ``use_kernel=True``) for 7
+   steps of 2 x 4096 SyntheticLM tokens: every attention forward and
+   remat recompute must have gone through the kernel (launches == 16 x
+   7), the losses must be finite and the last below the first; step 0
+   through the kernel and through the plain scan attention must agree
+   in loss, grad norm and gradients (``STEP0_TOL``, set from a measured
+   rounding floor).  Prints step ms, tokens/s, MFU and peak memory;
+10. time the flash kernel at the training shape beside its bound, its
+   plain version and ``F.scaled_dot_product_attention`` (a yardstick
+   only; the port never calls it).
 
 Output: human-readable lines, then one JSON line ``{"kernels": [...]}``,
 the card's name and power limit from nvidia-smi, and last
@@ -855,6 +875,370 @@ def phase_rwkv_kernel_times(fwd, ref):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the flash attention kernel against its plain version
+# ---------------------------------------------------------------------------
+
+FLASH_SWEEP = [  # (B, Hq, Hkv, S, T, D, window): tests/test_kernels.py:17-34
+    (2, 4, 2, 64, 64, 64, 0),       # GQA causal
+    (1, 8, 8, 128, 128, 128, 0),    # MHA
+    (2, 4, 1, 37, 37, 80, 16),      # odd sizes + window
+    (1, 2, 2, 192, 192, 64, 64),    # sliding window
+    (1, 16, 4, 48, 48, 256, 0),     # wide heads
+    (2, 4, 2, 40, 100, 64, 0),      # more keys than queries (T > S)
+]
+FLASH_TRAIN = (2, 32, 8, 4096, 4096, 128, 0)     # qwen3-8b, B=2, S=4096
+FLASH_WINDOW = (2, 32, 8, 4096, 4096, 128, 1024)  # the same, window 1024
+
+
+def flash_case(B, Hq, Hkv, S, T, D, *, seed, dtype):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dtype).cuda()
+            for shape in ((B, Hq, S, D), (B, Hkv, T, D), (B, Hkv, T, D))]
+
+
+def _flash_err(out, lse, eo, el, tol, what):
+    try:
+        torch.testing.assert_close(out.float(), eo.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(lse, el, atol=1e-4, rtol=1e-4)
+    except AssertionError as e:
+        fail(f"flash_attention {what}: {e}")
+    return ((out.float() - eo.float()).abs().max().item(),
+            (lse - el).abs().max().item())
+
+
+def phase_flash_vs_plain(fwd, ref):
+    """The kernel's output (bf16 within 2e-2, f32 within 1e-4) and
+    logsumexp (within 1e-4: the scores are exact float32 products of the
+    inputs in both dtypes) against the plain version, over the sweep of
+    test_kernels.py and at the training and windowed full-width shapes."""
+    worst = {}
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        for B, Hq, Hkv, S, T, D, window in FLASH_SWEEP:
+            q, k, v = flash_case(B, Hq, Hkv, S, T, D, seed=S, dtype=dtype)
+            out, lse = fwd(q, k, v, window=window)
+            torch.cuda.synchronize()
+            eo, el = ref(q, k, v, window=window, return_lse=True)
+            e = _flash_err(out, lse, eo, el, TOL[dname],
+                           f"sweep {dname} {(B, Hq, Hkv, S, T, D, window)}")
+            w = worst.get(dname, (0.0, 0.0))
+            worst[dname] = (max(w[0], e[0]), max(w[1], e[1]))
+    print(f"flash_attention vs plain, sweep of test_kernels.py + T > S: max "
+          f"abs err out bf16 {worst['bfloat16'][0]:.3e} (tol 2e-2), f32 "
+          f"{worst['float32'][0]:.3e} (tol 1e-4); lse "
+          f"{max(worst['bfloat16'][1], worst['float32'][1]):.3e} (tol 1e-4)")
+    # At these shapes a typical output element is about 0.03 (a softmax
+    # average over up to 4096 randn rows), so bf16's 2e-2 alone would let
+    # an error in P.V through; float32 at 1e-4 holds the accumulator.
+    errs = {}
+    for name, shape in (("training", FLASH_TRAIN), ("window 1024", FLASH_WINDOW)):
+        B, Hq, Hkv, S, T, D, window = shape
+        for dname, dtype in (("bfloat16", torch.bfloat16),
+                             ("float32", torch.float32)):
+            q, k, v = flash_case(B, Hq, Hkv, S, T, D, seed=1, dtype=dtype)
+            out, lse = fwd(q, k, v, window=window)
+            torch.cuda.synchronize()
+            eo, el = ref(q, k, v, window=window, return_lse=True)
+            e = errs[name, dname] = _flash_err(out, lse, eo, el, TOL[dname],
+                                               f"{name} {dname}")
+            del q, k, v, out, lse, eo, el
+            torch.cuda.empty_cache()
+            print(f"flash_attention vs plain at the {name} shape "
+                  f"(B,Hq,Hkv,S,D,window)={(B, Hq, Hkv, S, D, window)}, "
+                  f"{dname}: max abs err out {e[0]:.3e} (tol {TOL[dname]}), "
+                  f"lse {e[1]:.3e} (tol 1e-4)")
+    return errs
+
+
+def phase_flash_backward():
+    """Autograd through the port's flash attention (kernel forward, plain
+    blocked backward fed by the kernel's logsumexp) against autograd
+    through the plain version, float32, at a mid-size GQA shape: each
+    gradient within 1e-4 of its scale."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.ref import flash_attention_ref
+    B, Hq, Hkv, S, D = 2, 8, 2, 1024, 128
+    base = flash_case(B, Hq, Hkv, S, S, D, seed=5, dtype=torch.float32)
+    d_out = flash_case(B, Hq, Hkv, S, S, D, seed=6, dtype=torch.float32)[0]
+    grads = []
+    before = flash_attention_fwd.launches
+    for fn in (ops.flash_attention, flash_attention_ref):
+        xs = [t.clone().requires_grad_() for t in base]
+        out = fn(*xs)
+        grads.append(torch.autograd.grad(out, xs, d_out))
+    if flash_attention_fwd.launches != before + 1:
+        fail("the differentiable flash attention did not launch the kernel")
+    errs = []
+    for name, a, b in zip("qkv", *grads):
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        if not err <= 1e-4 * scale:
+            fail(f"flash backward d{name}: max abs err {err} > 1e-4 x {scale}")
+        errs.append(err / scale)
+    print(f"flash_attention backward (kernel lse, plain blocked FA2) vs "
+          f"autograd through the plain version, f32 (B,Hq,Hkv,S,D)="
+          f"{(B, Hq, Hkv, S, D)}: max err dq {errs[0]:.3e}, dk {errs[1]:.3e}, "
+          f"dv {errs[2]:.3e} of each gradient's scale (tol 1e-4)")
+    return max(errs)
+
+
+def flash_bound(B, Hq, Hkv, S, T, D, window, isz):
+    """Least time at one shape: q, k, v read once, out written once (in
+    the input dtype), lse written once (f32); two products of D
+    multiply-adds over every (q, k) pair the masks keep, at the bf16
+    tensor-core peak (the f32 peak for f32 inputs)."""
+    i = torch.arange(S, dtype=torch.float64)
+    keys = torch.minimum(i + 1, torch.tensor(float(T)))
+    if window > 0:
+        keys = torch.minimum(keys, torch.tensor(float(window)))
+    pairs = B * Hq * keys.sum().item()
+    byts = (2 * B * Hq * S * D + 2 * B * Hkv * T * D) * isz + B * Hq * S * 4
+    flops = pairs * 2 * 2 * D
+    peak = BF16_FLOPS if isz == 2 else F32_FLOPS
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), byts, flops
+
+
+def phase_flash_times(fwd, ref):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    B, Hq, Hkv, S, T, D, window = FLASH_TRAIN
+    cases = [flash_case(B, Hq, Hkv, S, T, D, seed=10 + i, dtype=torch.bfloat16)
+             for i in range(2)]          # 2 x 168 MB in turn: L2 holds neither
+    out, lse = fwd(*cases[0])
+    eo = ref(*cases[0])
+    max_err = (out.float() - eo.float()).abs().max().item()
+    del eo
+    torch.cuda.empty_cache()
+    for i in range(2):
+        fwd(*cases[i])
+    ms = event_ms(lambda i: fwd(*cases[i % 2]), 10)
+    plain_ms = event_ms(lambda i: ref(*cases[i % 2]), 2)
+    torch.cuda.empty_cache()
+
+    def sdpa(i):
+        return F.scaled_dot_product_attention(*cases[i % 2], is_causal=True,
+                                              enable_gqa=True)
+    torch.testing.assert_close(sdpa(0).float(), out.float(), atol=2e-2,
+                               rtol=2e-2)
+    for i in range(2):
+        sdpa(i)
+    library_ms = event_ms(sdpa, 20)
+    # the backward the training step runs after each launch (plain
+    # PyTorch), timed alone for the step's breakdown
+    d_out = torch.randn_like(out)
+    backward_ms = event_ms(lambda i: flash_attention_bwd(
+        *cases[i % 2], out, lse, d_out), 2)
+    bound_ms, bound_by, byts, flops = flash_bound(*FLASH_TRAIN, 2)
+    print(f"flash_attention at the training shape (B,Hq,Hkv,S,D)="
+          f"{(B, Hq, Hkv, S, D)}, bf16 causal: kernel {ms * 1e3:.1f} us, bound "
+          f"{bound_ms * 1e3:.1f} us ({bound_by}: {byts / 1e6:.1f} MB, "
+          f"{flops / 1e9:.1f} GFLOP), plain {plain_ms * 1e3:.1f} us, sdpa "
+          f"{library_ms * 1e3:.1f} us; its plain blocked backward "
+          f"{backward_ms * 1e3:.1f} us")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": max_err,
+            "plain_backward_ms": backward_ms}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: qwen3-8b trained at full width (depth cut to 8 layers)
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 8                 # of 36: 44.6 GB of state (16 B / param)
+TRAIN_B, TRAIN_S = 2, 4096       # 8192 tokens per step
+TRAIN_STEPS = 7                  # one warmup step, then six timed
+# step 0 through the kernel vs the plain scan attention, relative to the
+# plain path's value ("grads": the L2 norm of the difference of the two
+# gradient trees over the plain one's).  The same comparison with the
+# plain path's kv chunk halved (another float32 summation order, the same
+# bf16 roundings) measured the rounding floor once: loss 1.5e-5, grad
+# norm 1.8e-5, grads 1.5e-2 on an H100 80GB HBM3 at 700 W, the last from
+# bf16 gradients through 8 layers.  The tolerances sit at about 7x, 5x
+# and 1.3x that floor; the kernel path measured 6.4e-6, 3.7e-7 and
+# 1.65e-2 there.
+STEP0_TOL = {"loss": 1e-4, "grad_norm": 1e-4, "grads": 2e-2}
+
+
+def train_flops(cfg, B, S):
+    """Model flops of one training step: 6 x the matmul parameters (the
+    layers and the untied head; the embedding is a lookup) x tokens, plus
+    3 x the causal attention forward's two products (forward, and twice
+    that in the backward), as MFU counts them."""
+    d, hd = cfg.d_model, cfg.head_dim
+    per_layer = (d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+                 + 3 * d * cfg.d_ff)
+    matmul_params = cfg.n_layers * per_layer + d * cfg.vocab_size
+    pairs = B * cfg.n_heads * S * (S + 1) / 2
+    attn_fwd = cfg.n_layers * pairs * 2 * 2 * hd
+    return 6 * matmul_params * B * S + 3 * attn_fwd
+
+
+def step0_compare(cfg, params, batch):
+    """Loss, grad norm and gradients of step 0 through the kernel path and
+    through the plain scan attention, from the same params and batch."""
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.loss import cross_entropy_chunked
+    from repro_torch.train.step import _head_matrix, grads_of
+    from repro_torch.models.transformer import forward
+    from repro_torch.tree import leaves
+
+    def run(use_kernel):
+        h, _, _ = forward(params, cfg, batch, remat=True, compute_logits=False,
+                          use_kernel=use_kernel)
+        loss, _ = cross_entropy_chunked(h, _head_matrix(params, cfg),
+                                        batch["labels"])
+        grads = grads_of(params, loss)
+        return loss.item(), global_norm(grads).item(), grads
+
+    def rel_l2(ga, gb):
+        num = sum(((a.float() - b.float()).square().sum())
+                  for a, b in zip(leaves(ga), leaves(gb)))
+        den = sum(b.float().square().sum() for b in leaves(gb))
+        return (num / den).sqrt().item()
+
+    lp, np_, gp = run(False)
+    lk, nk, gk = run(True)
+    d_kernel = {"loss": abs(lk - lp) / abs(lp), "grad_norm": abs(nk - np_) / np_,
+                "grads": rel_l2(gk, gp)}
+    del gk, gp
+    print(f"step 0, kernel vs plain scan attention: loss {lk:.6f} vs "
+          f"{lp:.6f}, grad norm {nk:.6f} vs {np_:.6f}; relative differences "
+          + ", ".join(f"{k} {v:.3e} (tol {STEP0_TOL[k]})"
+                      for k, v in d_kernel.items()))
+    for k, v in d_kernel.items():
+        if not v <= STEP0_TOL[k]:
+            fail(f"step 0 {k}: kernel path differs from the plain path by "
+                 f"{v} relative (tol {STEP0_TOL[k]})")
+    return d_kernel
+
+
+def profile_train_step(trainer, step_fn, loader):
+    """Device time of one more training step by kernel, under
+    ``torch.profiler``: the busy share of the step's wall time and the
+    shares of the flash kernel, the matmuls and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+    batch = loader.batch(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        trainer.params, trainer.opt_state, _ = step_fn(
+            trainer.params, trainer.opt_state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels)
+    if busy <= 0:
+        print("profile: the profiler saw no device time (not measured)")
+        return {}
+
+    def share(pred):
+        return sum(e.self_device_time_total for e in kernels
+                   if pred(e.key)) / busy
+    flash = share(lambda k: "flash_fwd_kernel" in k)
+    gemm = share(lambda k: any(w in k for w in ("gemm", "xmma", "cutlass",
+                                                "nvjet")))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"profile of one training step: {wall_us / 1e3:.1f} ms under the "
+          f"profiler, device busy {busy / 1e3:.1f} ms ({busy / wall_us:.3f} "
+          f"of wall), {sum(e.count for e in kernels)} kernels; flash "
+          f"{flash:.3f}, matmuls {gemm:.3f}, rest {1 - flash - gemm:.3f} of "
+          f"device time; top: "
+          + "; ".join(f"{e.key[:48]} {e.self_device_time_total / busy:.3f}"
+                      for e in top))
+    return {"profiled_step_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / wall_us, "flash_share": flash,
+            "matmul_share": gemm,
+            "kernels_per_step": sum(e.count for e in kernels)}
+
+
+def phase_train(fwd, kernels):
+    """qwen3-8b at full width, 8 of 36 layers, trained through the port's
+    Trainer (adamw, cosine_lr, full remat, use_kernel) for TRAIN_STEPS
+    steps on SyntheticLM batches of 2 x 4096 tokens."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    from repro_torch.models.transformer import init_params, trainable
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=TRAIN_LAYERS)
+    loader = SyntheticLM(SyntheticConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_S, global_batch=TRAIN_B,
+        noise=0.05, seed=0), device="cuda")
+
+    params = trainable(init_params(0, cfg, device="cuda"))
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"qwen3-8b, {TRAIN_LAYERS} of 36 layers: {n_params / 1e9:.3f} B "
+          f"parameters; batch {TRAIN_B} x {TRAIN_S} tokens")
+    step0 = step0_compare(cfg, params, loader.batch(0))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tcfg = TrainConfig(steps=TRAIN_STEPS, lr=1e-3, warmup=1,
+                       weight_decay=0.01, remat=True, log_every=1,
+                       use_kernel=True, device="cuda", seed=0)
+    t0 = time.time()
+    trainer = Trainer(cfg, tcfg, loader)
+    torch.cuda.synchronize()
+    print(f"trainer: params and adamw state on the card in "
+          f"{time.time() - t0:.1f}s")
+    rec = []
+    step_fn = trainer.step_fn
+
+    def timed(params, opt_state, batch):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = step_fn(params, opt_state, batch)
+        b.record()
+        rec.append((a, b))
+        return out
+    trainer.step_fn = timed
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)                # count only the main path's run
+    torch.cuda.synchronize()
+    t0 = time.time()
+    hist = trainer.fit(log=print)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = fwd.launches
+    per_step = 2 * cfg.n_layers          # forward + remat recompute
+    if launches != per_step * TRAIN_STEPS:
+        fail(f"flash launches {launches} != {per_step} x {TRAIN_STEPS} steps")
+    losses = [m["loss"] for m in hist]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"training losses are not {TRAIN_STEPS} finite values: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    ms = [a.elapsed_time(b) for a, b in rec[1:]]     # after the warmup step
+    step_ms = sum(ms) / len(ms)
+    flops = train_flops(cfg, TRAIN_B, TRAIN_S)
+    timing = {
+        "step_ms": step_ms, "step_ms_min": min(ms), "step_ms_max": max(ms),
+        "tokens_per_s": TRAIN_B * TRAIN_S / step_ms * 1e3,
+        "mfu": flops / (step_ms * 1e-3) / BF16_FLOPS,
+        "model_tflop_per_step": flops / 1e12,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "fit_wall_s": wall, "loss_first": losses[0], "loss_last": losses[-1],
+    }
+    print(f"trained {TRAIN_STEPS} steps ({wall:.1f}s): loss {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f}; flash launches {launches} = {per_step} x "
+          f"{TRAIN_STEPS}")
+    print("training: " + ", ".join(f"{k}={v}" for k, v in timing.items()))
+    timing.update(profile_train_step(trainer, step_fn, loader))
+    del trainer, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, timing, step0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -865,10 +1249,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.paged_attention import paged_attention_fwd
-    from repro_torch.kernels.ref import paged_attention_ref, rwkv_scan_ref
+    from repro_torch.kernels.ref import (flash_attention_ref,
+                                         paged_attention_ref, rwkv_scan_ref)
     from repro_torch.kernels.rwkv_scan import rwkv_scan_fwd
-    kernels = (paged_attention_fwd, rwkv_scan_fwd)
+    kernels = (paged_attention_fwd, rwkv_scan_fwd, flash_attention_fwd)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -885,6 +1271,10 @@ def main() -> int:
 
     phase_kernel_vs_plain(paged_attention_fwd, paged_attention_ref)
     phase_rwkv_vs_plain(rwkv_scan_fwd, rwkv_scan_ref)
+    phase_flash_vs_plain(flash_attention_fwd, flash_attention_ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_flash_backward()
     pa_launches, _ = phase_serve(paged_attention_fwd, kernels)
     pa_times = phase_kernel_times(paged_attention_fwd, paged_attention_ref)
     gc.collect()                         # qwen3-8b's weights go first
@@ -893,6 +1283,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rw_times = phase_rwkv_kernel_times(rwkv_scan_fwd, rwkv_scan_ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa_launches, _, _ = phase_train(flash_attention_fwd, kernels)
+    fa_times = phase_flash_times(flash_attention_fwd, flash_attention_ref)
 
     result = [
         {"name": "paged_attention", "route": "cuda",
@@ -907,6 +1301,11 @@ def main() -> int:
          "shapes": {"decode B=8 S=1 H=64 hd=64": rw_times["decode"],
                     "prefill B=8 S=128 H=64 hd=64, 1 live row":
                         rw_times["prefill"]}},
+        # the training shape: qwen3-8b, B=2, S=4096, bf16, causal
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:76",
+         "launches": fa_launches, **fa_times},
     ]
     print(json.dumps({"kernels": result}))
     print(card)

@@ -1,8 +1,9 @@
-"""PyTorch/CUDA port of the ``repro`` serving stack.
+"""PyTorch/CUDA port of ``repro``: its serving engine and its training
+stack.
 
 The package mirrors ``repro``'s layout (``models``, ``configs``,
-``kernels``, ``serve``, ``launch``) and imports neither JAX nor anything
-from ``repro``.  Entry points run on the CUDA device unless the caller
+``kernels``, ``serve``, ``train``, ``optim``, ``data``, ``checkpoint``,
+``launch``) and imports neither JAX nor anything from ``repro``.  Entry points run on the CUDA device unless the caller
 passes ``device="cpu"``; with no GPU and no explicit CPU request they
 raise instead of silently running on the host.
 """

@@ -1,5 +1,5 @@
-"""Convert the JAX package's parameter and cache trees into the port's
-tensors, key for key.
+"""Convert the JAX package's parameter, cache and optimizer-state trees
+into the port's tensors, key for key.
 
 Callers hand over numpy leaves (``jax.tree.map(np.asarray, tree)``), so
 this module needs no JAX.  bfloat16 arrives as an ``ml_dtypes`` array,
@@ -42,3 +42,10 @@ def caches_from_jax(tree, device: DeviceLike = None) -> dict:
     """JAX ``init_cache`` / engine cache tree (numpy leaves) -> the port's
     caches, each leaf with storage of its own."""
     return _convert(tree, resolve_device(device))
+
+
+def opt_state_from_jax(state, device: DeviceLike = None) -> dict:
+    """JAX optimizer state (numpy leaves) -> the port's: ``adamw``'s
+    {"step", "master", "mu", "nu"} (8-bit moments as {"q", "s"} leaves)
+    or ``sgd``'s {"step", "vel"}, structure and dtypes kept."""
+    return _convert(state, resolve_device(device))

@@ -8,8 +8,21 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention import FlashAttention
 from repro_torch.kernels.paged_attention import paged_attention_fwd
 from repro_torch.kernels.rwkv_scan import rwkv_scan_fwd
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Dense forward attention with index masks (causal and / or a
+    sliding window), GQA through ``h // G``: q (B,Hq,S,D), k / v
+    (B,Hkv,T,D) contiguous -> (B,Hq,S,D).  The signature and result of
+    ``repro.kernels.ops.flash_attention`` (without its TPU block sizes);
+    differentiable, with the kernel as the forward and a plain blocked
+    backward (see ``kernels.flash_attention``)."""
+    return FlashAttention.apply(q, k, v, causal, window, scale)
 
 
 def paged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -111,3 +111,44 @@ def rwkv_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         st = torch.where(rows.reshape(B, 1, 1, 1), st,
                          0.0 if s0 is None else s0)
     return o, st
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        scale: Optional[float] = None,
+                        return_lse: bool = False):
+    """Dense attention with the flash kernel's index masks.
+
+    q: (B, Hq, S, D); k, v: (B, Hkv, T, D); query head h reads kv head
+    h // (Hq // Hkv).  Key j is masked for query i where j > i (causal)
+    or j <= i - window (window > 0).  Float32 inside; returns the output
+    in q.dtype and, with ``return_lse``, also the per-row logsumexp
+    (B, Hq, S) in float32 (``NEG_INF`` for a row with no key, whose
+    output is zeros).  This is ``repro.kernels.ref.attention_ref`` (and
+    the Pallas ``flash_attention``) with the logsumexp added; it is
+    differentiable by autograd, which the tests use as the reference of
+    the kernel's backward."""
+    B, Hq, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    qf = q.float().reshape(B, Hkv, G, S, D)
+    s = torch.einsum("bngsd,bntd->bngst", qf, k.float()) * scale
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(T, device=q.device)[None, :]
+    ok = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= j <= i
+    if window > 0:
+        ok &= j > i - window
+    s = s.masked_fill(~ok, float("-inf"))
+    m = s.detach().amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, NEG_INF)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    out = torch.einsum("bngst,bntd->bngsd", e / l, v.float())
+    out = out.reshape(B, Hq, S, v.shape[-1]).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, (m + torch.log(l)).reshape(B, Hq, S)

@@ -6,7 +6,8 @@ tensors under the JAX package's key names.  Unlike the JAX package, the
 cache writes (``ring_write`` and the helpers above it) update the cache
 tensors IN PLACE and return them, so a serving engine keeps one copy of
 its pools.  Sliding-window attention (``attn_apply`` with ``window > 0``)
-and MoE wait for later slices of the port.
+and MoE wait for later slices of the port.  Every function here is
+differentiable by autograd when it runs without a cache (training).
 """
 from __future__ import annotations
 
@@ -227,7 +228,9 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     """x: (B,S,d).  cache: dense {"k","v": (B,T,Hkv,D), "pos": (B,T)}, or
     a paged pool {"k","v": (N,page,Hkv,D), "pos": (N,page)} when a
     (B, n_cols) block ``table`` is given.  The cache is written in place;
-    returns (out, cache)."""
+    returns (out, cache).  ``use_kernel``: paged single-token decode runs
+    the paged-decode kernel, and self-attention with no cache (whose
+    positions must be arange(S)) the flash-attention kernel."""
     if window > 0:
         raise NotImplementedError(
             "repro_torch: sliding-window attention is not ported yet")
@@ -265,6 +268,19 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
             kv_pos = positions
     else:
         kv_pos = positions
+        if use_kernel:
+            # self-attention over the sequence itself (training): the
+            # caller's positions are arange(S) (``transformer.forward``
+            # insists), so the flash kernel's index masks are the
+            # position masks
+            if cfg.logits_softcap > 0.0:
+                raise NotImplementedError(
+                    "repro_torch: the flash kernel has no logit softcap")
+            out = ops.flash_attention(*(t.transpose(1, 2).contiguous()
+                                        for t in (q, k, v)),
+                                      causal=True, window=window)
+            out = out.transpose(1, 2).reshape(B, S, hq * hd)
+            return row_dot(out, p["wo"]), cache
     out = attention(q, k, v, positions, kv_pos, window=window,
                     softcap=cfg.logits_softcap, kv_chunk=kv_chunk,
                     table=attn_table, use_kernel=use_kernel)

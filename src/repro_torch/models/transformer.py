@@ -5,6 +5,8 @@ Parameters and decode caches are nested dicts under the JAX package's
 key names.  Stack leaves carry a leading ``n_periods`` axis; ``forward``
 loops over it in Python (the JAX version's ``lax.scan``), and the cache
 of period i is a view into the stacked storage, written in place.
+Without a cache the forward is differentiable: ``remat`` recomputes each
+period in the backward pass, as the JAX version's ``jax.checkpoint``.
 ``Transformer`` is the ``nn.Module`` that owns such a parameter tree.
 """
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.models import ssm
@@ -21,6 +24,7 @@ from repro_torch.models.layers import (attn_apply, attn_init, cache_init,
                                        dense_init, embed_init, ffn_apply,
                                        ffn_init, paged_cache_init, rmsnorm,
                                        rmsnorm_init)
+from repro_torch.tree import leaves
 
 
 def _check_layer(spec) -> None:
@@ -186,23 +190,48 @@ def _period(tree, i: int):
     return tuple(_period(v, i) for v in tree)
 
 
+def _remat_wrap(body, remat: bool, remat_policy: str):
+    """``remat_policy`` "full": recompute each period's activations in the
+    backward pass (``jax.checkpoint`` with no policy in the JAX package);
+    "none" is another way of saying ``remat=False``: keep them.  That is
+    the meaning ``core/workload.py`` gives "none"; the JAX forward itself
+    falls through to a full checkpoint for it.  The parameter stays for
+    the JAX signatures of ``loss_fn`` / ``make_train_step``.  The JAX
+    package's "dots" / "dots_no_batch" save the matmul outputs; they are
+    not ported."""
+    if remat_policy in ("dots", "dots_no_batch"):
+        raise NotImplementedError(
+            f"repro_torch: remat_policy {remat_policy!r} is not ported yet")
+    if remat_policy not in ("full", "none"):
+        raise ValueError(f"unknown remat_policy {remat_policy!r}")
+    if not remat or remat_policy == "none":
+        return body
+    return lambda *args: checkpoint(body, *args, use_reentrant=False)
+
+
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             caches: Optional[dict] = None,
             positions: Optional[torch.Tensor] = None,
-            kv_chunk: int = 1024, compute_logits: bool = True,
-            masked_slots: bool = False, block_table=None,
+            remat: bool = False, kv_chunk: int = 1024,
+            compute_logits: bool = True, masked_slots: bool = False,
+            remat_policy: str = "full", block_table=None,
             use_kernel: bool = False):
     """Run the decoder.  Returns (logits_or_hidden, aux_loss, caches);
     ``caches`` is updated in place and returned.  ``positions`` defaults
     to arange(S) per row.  ``block_table`` marks ``caches`` as paged
     pools; ``use_kernel=True`` runs each mixer's Hopper kernel where the
-    port has one (paged single-token decode attention, the RWKV
-    recurrence)."""
+    port has one (paged single-token decode attention, self-attention
+    with no cache, the RWKV recurrence).  ``remat`` recomputes each
+    period's activations in the backward pass (see ``_remat_wrap``)."""
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device)[None].expand(B, S)
+    elif use_kernel and caches is None and cfg.n_heads:
+        raise ValueError(
+            "repro_torch: with no cache, use_kernel runs the flash kernel, "
+            "which masks by index: leave positions at its default arange(S)")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kw = dict(kv_chunk=kv_chunk, masked_slots=masked_slots,
               block_table=block_table, use_kernel=use_kernel)
@@ -212,16 +241,32 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
                               c, **kw)
         aux = aux + a
     for stack in cfg.stacks:
-        for t in range(stack.n_periods):
+        def period_apply(x, t):
             pp = _period(params["stack"], t)
             pc = _period(caches["stack"], t) if caches is not None else None
+            a_tot = torch.zeros((), dtype=torch.float32, device=x.device)
             for j, spec in enumerate(stack.period):
                 x, _, a = layer_apply(pp[j], spec, cfg, x, positions,
                                       pc[j] if pc is not None else None, **kw)
-                aux = aux + a
+                a_tot = a_tot + a
+            return x, a_tot
+
+        body = _remat_wrap(period_apply, remat, remat_policy)
+        for t in range(stack.n_periods):
+            x, a = body(x, t)
+            aux = aux + a
     h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     out = unembed(params, cfg, h) if compute_logits else h
     return out, aux, caches
+
+
+def trainable(params: dict) -> dict:
+    """Mark every leaf of a parameter tree as requiring gradients, in
+    place, and return the tree.  Gradients of stacked (n_periods, ...)
+    leaves flow through ``_period``'s views into the stacked tensors."""
+    for leaf in leaves(params):
+        leaf.requires_grad_(True)
+    return params
 
 
 class _Node(nn.Module):
@@ -254,7 +299,9 @@ class _Node(nn.Module):
 class Transformer(_Node):
     """Owns a parameter tree, so ``state_dict`` keys are the JAX key
     paths ("stack.0.mixer.wq", ...).  ``params()`` hands the functional
-    code the same tensors as a nested dict — no copies."""
+    code the same tensors as a nested dict — no copies.  The parameters
+    stay frozen (serving); training works on the plain tree made
+    ``trainable``."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         check_ported(cfg)

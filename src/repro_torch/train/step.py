@@ -1,0 +1,111 @@
+"""Train-step builder: loss -> grads -> optimizer, with activation
+recomputation over layer periods, token-chunked cross entropy and
+microbatch gradient accumulation — the counterpart of
+``repro.train.step``.  PyTorch runs eagerly, so the builders return
+plain functions (the JAX version's are meant for ``jax.jit``).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import forward
+from repro_torch.train.loss import cross_entropy_chunked
+from repro_torch.tree import leaves, unflatten
+
+
+def _head_matrix(params, cfg):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _check_mtp(cfg: ModelConfig) -> None:
+    if cfg.mtp_depth:
+        raise NotImplementedError(
+            "repro_torch: multi-token prediction (MTP) training is not "
+            "ported yet")
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            remat: bool = True, ce_chunk: int = 512,
+            remat_policy: str = "full", use_kernel: bool = False
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, {"ce", "aux", "acc"}) of one batch {"tokens", "labels"}.
+    ``use_kernel`` runs the attention through the flash kernel."""
+    _check_mtp(cfg)
+    h, aux, _ = forward(params, cfg, batch, remat=remat, compute_logits=False,
+                        remat_policy=remat_policy, use_kernel=use_kernel)
+    ce, acc = cross_entropy_chunked(h, _head_matrix(params, cfg),
+                                    batch["labels"], chunk=ce_chunk)
+    return ce + aux, {"ce": ce, "aux": aux, "acc": acc}
+
+
+def grads_of(params, loss: torch.Tensor):
+    """d loss / d params as a tree of params' structure."""
+    flat = list(leaves(params))
+    return unflatten(params, iter(torch.autograd.grad(loss, flat)))
+
+
+def make_train_step(cfg: ModelConfig, optimizer, *, microbatches: int = 1,
+                    remat: bool = True, ce_chunk: int = 512,
+                    remat_policy: str = "full",
+                    use_kernel: bool = False) -> Callable:
+    """Returns ``train_step(params, opt_state, batch) -> (params,
+    opt_state, metrics)``; the optimizer updates params and state in
+    place.  ``microbatches > 1`` accumulates the gradients of equal batch
+    slices in float32, averaged, as the JAX version's scan does;
+    ``remat_policy``: full | none (dots / dots_no_batch are not ported).
+    The params must require gradients (``transformer.trainable``)."""
+    _check_mtp(cfg)
+
+    def grad_fn(params, batch):
+        loss, metrics = loss_fn(params, cfg, batch, remat=remat,
+                                ce_chunk=ce_chunk, remat_policy=remat_policy,
+                                use_kernel=use_kernel)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+            grads_of(params, loss)
+
+    def train_step(params, opt_state, batch):
+        if microbatches == 1:
+            loss, metrics, grads = grad_fn(params, batch)
+        else:
+            B = batch["labels"].shape[0]
+            if B % microbatches:
+                raise ValueError(f"batch {B} is not a multiple of "
+                                 f"microbatches {microbatches}")
+            n = B // microbatches
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in leaves(params)]
+            metrics = {k: torch.zeros((), dtype=torch.float32,
+                                      device=batch["labels"].device)
+                       for k in ("ce", "aux", "acc")}
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=batch["labels"].device)
+            for i in range(microbatches):
+                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                l, m, g = grad_fn(params, mb)
+                for acc, gi in zip(grads, leaves(g)):
+                    acc.add_(gi.float() / microbatches)
+                for k in metrics:
+                    metrics[k] = metrics[k] + m[k].float() / microbatches
+                loss = loss + l / microbatches
+                del g
+            grads = unflatten(params, iter(grads))
+        params, opt_state, opt_metrics = optimizer.update(grads, opt_state,
+                                                          params)
+        metrics = dict(metrics)
+        metrics.update(opt_metrics)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig, *, ce_chunk: int = 512) -> Callable:
+    @torch.no_grad()
+    def eval_step(params, batch):
+        _, metrics = loss_fn(params, cfg, batch, remat=False,
+                             ce_chunk=ce_chunk)
+        return metrics
+    return eval_step

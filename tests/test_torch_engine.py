@@ -268,6 +268,11 @@ print(" ".join(mods))
                           text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
     mods = set(proc.stdout.split())
-    assert len(mods) >= 22
+    assert len(mods) >= 34
     assert {"repro_torch.models.ssm", "repro_torch.kernels.rwkv_scan",
-            "repro_torch.configs.rwkv6_7b"} <= mods
+            "repro_torch.configs.rwkv6_7b",
+            "repro_torch.kernels.flash_attention", "repro_torch.tree",
+            "repro_torch.train.loss", "repro_torch.train.step",
+            "repro_torch.train.trainer", "repro_torch.optim.adamw",
+            "repro_torch.data.synthetic", "repro_torch.checkpoint.store",
+            "repro_torch.launch.train"} <= mods

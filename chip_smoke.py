@@ -10,8 +10,9 @@ failure:
 1. build every kernel of ``src/repro_torch/kernels/csrc`` with nvcc and
    print each instance's registers and spilled bytes;
 2. hold each kernel against its plain PyTorch version on the card over
-   the sweep of ``tests/test_paged_kernel.py`` plus the qwen3-8b decode
-   shape (bf16 within 2e-2, f32 within 1e-4 — the sums run in another
+   the sweep of ``tests/test_paged_kernel.py`` plus the decode shapes of
+   qwen3-8b and jamba-1.5-large (32 and 64 q heads over 8 kv heads;
+   bf16 within 2e-2, f32 within 1e-4 — the sums run in another
    order than the plain version's), and check that -1 table columns are
    exactly neutral and idle slots exactly zero;
 3. serve qwen3-8b at full width (random bf16 weights drawn on the card)
@@ -48,7 +49,38 @@ failure:
 7. time rwkv serving and the kernel at both served shapes beside its
    bound and its plain version (no single PyTorch call computes the wkv
    recurrence, so there is no library time);
-8. hold the flash-attention kernel against its plain version over the
+8. hold the ``mamba_scan`` kernel against its plain version over the
+   sweep of ``tests/test_kernels.py::test_mamba_scan_vs_ref`` (zero
+   state), with a nonzero initial state and the final state returned
+   (S = 1, 150), and at the two served shapes of jamba-1.5-large (a
+   decode tick, B=8 S=1 d_inner=16384 d_state=16, and a 128-token
+   prefill chunk with one live row), state written in place; y in bf16
+   within 2e-2, y in f32 and the state within 1e-4, rows flagged idle
+   keep their state bit for bit;
+9. serve jamba-1.5-large (Mamba + attention + MoE) at full width with 4
+   of its 72 layers (attention + dense, Mamba + MoE, Mamba + dense,
+   Mamba + MoE: 23.02 B parameters, 46 GB of bf16) through the same
+   engine: the 16 requests of phase 6 without the long one, two
+   sampled.  Every Mamba mixer must have gone through ``mamba_scan``
+   (launches == (prefill_calls + decode_calls) x 3) and every decode
+   attention through the paged-decode kernel (launches == decode_calls),
+   and no page may be shared.  On a served state, one decode tick (8
+   live slots) and one 128-token prefill chunk (one live slot) go
+   through each layer's mixer by the kernels and by the plain path on
+   the same input (outputs within 2e-2 of their scale, Mamba state
+   within 1e-4 of its scale, conv history bit for bit), and through the
+   whole model: in bf16 beside a rounding floor (the plain path again
+   with its attention summed in 16-position chunks) with equal greedy
+   tokens wherever the top-2 margin exceeds the floor, and in float32
+   activations with the live slots' logits within 2e-2 of their scale
+   and equal greedy tokens; idle slots keep their Mamba state and conv
+   history bit for bit;
+10. time ``mamba_scan`` at both served shapes beside its bound (bytes,
+   float32 flops and exps on the SFUs) and its plain version (no single
+   PyTorch call computes the selective scan, so there is no library
+   time), and the paged-decode kernel at jamba's decode shape (64 q / 8
+   kv heads);
+11. hold the flash-attention kernel against its plain version over the
    sweep of ``tests/test_kernels.py::test_flash_attention_vs_ref`` (plus
    T > S) and at the training shape of qwen3-8b (B=2, S=4096, GQA 32 / 8
    heads of 128) with and without a 1,024-token window, each in bf16
@@ -57,7 +89,7 @@ failure:
    through the port's flash attention (kernel forward, plain blocked
    backward) against autograd through the plain version, f32, each
    gradient within 1e-4 of its scale;
-9. train qwen3-8b at full width, 8 of its 36 layers, through the port's
+12. train qwen3-8b at full width, 8 of its 36 layers, through the port's
    ``Trainer`` (adamw, cosine_lr, full remat, ``use_kernel=True``) for 7
    steps of 2 x 4096 SyntheticLM tokens: every attention forward and
    remat recompute must have gone through the kernel (launches == 16 x
@@ -65,9 +97,12 @@ failure:
    through the kernel and through the plain scan attention must agree
    in loss, grad norm and gradients (``STEP0_TOL``, set from a measured
    rounding floor).  Prints step ms, tokens/s, MFU and peak memory;
-10. time the flash kernel at the training shape beside its bound, its
+13. time the flash kernel at the training shape beside its bound, its
    plain version and ``F.scaled_dot_product_attention`` (a yardstick
    only; the port never calls it).
+
+The phases run in the order 1-2, 5, 11 (the kernel checks), 3-4, 6-7,
+8-10, 12-13; each model is freed before the next is drawn.
 
 Output: human-readable lines, then one JSON line ``{"kernels": [...]}``,
 the card's name and power limit from nvidia-smi, and last
@@ -182,13 +217,17 @@ SWEEP = [  # (B, Hq, Hkv, D, page, n_cols, used, window, softcap, De)
 ]
 
 
-def qwen3_decode_case(dtype, seed=0):
-    """The served decode shape: 8 slots, 32 q / 8 kv heads of 128, 16-row
-    pages, 64 table columns over a 512-page pool, rows filled to mixed
-    lengths (2..40 pages, as 32..600-token prompts plus 32 new tokens)."""
+QWEN3_HQ, JAMBA_HQ = 32, 64       # q heads over 8 kv heads of 128
+
+
+def decode_case(Hq, dtype, seed=0):
+    """A served decode shape: 8 slots, ``Hq`` q / 8 kv heads of 128
+    (qwen3-8b 32, jamba-1.5-large 64), 16-row pages, 64 table columns
+    over a 512-page pool, rows filled to mixed lengths (2..40 pages, as
+    32..600-token prompts plus 32 new tokens)."""
     g = torch.Generator().manual_seed(seed + 100)
     used = torch.randint(2, 41, (8,), generator=g).tolist()
-    return pool_case(8, 32, 8, 128, 16, 64, used, seed=seed,
+    return pool_case(8, Hq, 8, 128, 16, 64, used, seed=seed,
                      dtype=dtype, N=512)
 
 
@@ -202,7 +241,8 @@ def phase_kernel_vs_plain(fwd, ref):
                   (48 + De) ** -0.5 if De else None)
                  for (B, Hq, Hkv, D, page, n, used, window, softcap, De)
                  in SWEEP]
-        cases.append((qwen3_decode_case(dtype), 0, 0.0, None))
+        cases += [(decode_case(Hq, dtype), 0, 0.0, None)
+                  for Hq in (QWEN3_HQ, JAMBA_HQ)]
         for c, window, softcap, scale in cases:
             if "q_extra" in c:
                 c["v"] = c["k"]                  # MLA: latent pool is K = V
@@ -441,12 +481,12 @@ def event_ms(fn, n):
     return a.elapsed_time(b) / n
 
 
-def phase_kernel_times(fwd, ref):
+def phase_kernel_times(fwd, ref, Hq, model):
     import torch.nn.functional as F
     from repro_torch.models.layers import gather_pages, gather_pos
     # four pools (4 x 33.5 MB of K/V) in turn, so L2 (50 MB) holds no
     # previous launch's pages — the serving loop reads them cold too
-    cases = [qwen3_decode_case(torch.bfloat16, seed=s) for s in range(4)]
+    cases = [decode_case(Hq, torch.bfloat16, seed=s) for s in range(4)]
     c = cases[0]
     B, _, Hq, D = c["q"].shape
     page, Hkv, Dv = c["v"].shape[1], c["v"].shape[2], c["v"].shape[3]
@@ -488,8 +528,9 @@ def phase_kernel_times(fwd, ref):
     flops = 2 * cols * page * Hq * (D + Dv)      # q.k and p.v per position
     t_bytes, t_ops = byts / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
     bound_ms = max(t_bytes, t_ops)
-    print(f"paged_attention at the served shape (B=8, Hq=32, Hkv=8, D=128, "
-          f"page 16, 64 columns, {cols} allocated): kernel {ms * 1e3:.2f} us, "
+    print(f"paged_attention at {model}'s served shape (B=8, Hq={Hq}, Hkv=8, "
+          f"D=128, page 16, 64 columns, {cols} allocated): kernel "
+          f"{ms * 1e3:.2f} us, "
           f"bound {bound_ms * 1e3:.2f} us ({byts / 1e6:.2f} MB), plain "
           f"{plain_ms * 1e3:.1f} us, sdpa on gathered K/V "
           f"{library_ms * 1e3:.2f} us")
@@ -876,7 +917,433 @@ def phase_rwkv_kernel_times(fwd, ref):
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: the flash attention kernel against its plain version
+# Phase 8: the mamba_scan kernel against its plain version
+# ---------------------------------------------------------------------------
+
+MAMBA_SWEEP = [(1, 32, 64, 8), (2, 96, 192, 16), (1, 50, 48, 4)]  # B,S,di,ds
+MAMBA_DECODE = (8, 1, 16384, 16)   # the served shapes of jamba-1.5-large
+MAMBA_PREFILL = (8, 128, 16384, 16)  # at 8 slots (a 128-token chunk, one
+MAMBA_LIVE_ROW = 5                 # live row)
+# exp throughput of the SFUs: 16 results per clock per SM on compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput) x 132 SMs x 1.98 GHz (H100 SXM boost clock, data sheet)
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
+
+
+def mamba_case(B, S, di, ds, *, seed, dtype, state=False):
+    """x ~ 0.5 N(0, 1), dt = 0.1 softplus(N(0, 1)), b, c ~ N(0, 1),
+    a = -exp(N(0, 1)) (as in ``tests/test_kernels.py``), optionally a
+    N(0, 1) initial state."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g)
+    c = {"x": (rnd(B, S, di) * 0.5).to(dtype).cuda(),
+         "dt": (torch.nn.functional.softplus(rnd(B, S, di)) * 0.1
+                ).to(dtype).cuda(),
+         "b": rnd(B, S, ds).to(dtype).cuda(),
+         "c": rnd(B, S, ds).to(dtype).cuda(),
+         "a": (-torch.exp(rnd(di, ds))).cuda()}
+    if state:
+        c["h0"] = rnd(B, di, ds).cuda()
+    return c
+
+
+def mamba_args(c):
+    return [c[n] for n in ("x", "dt", "b", "c", "a")]
+
+
+def served_mamba_case(shape, seed=0):
+    """The model path's operands: bf16 x / dt / b / c, a cached state,
+    and (prefill) one live row."""
+    c = mamba_case(*shape, seed=seed, dtype=torch.bfloat16, state=True)
+    if shape[1] > 1:
+        c["rows"] = torch.zeros(shape[0], dtype=torch.bool, device="cuda")
+        c["rows"][MAMBA_LIVE_ROW] = True
+    return c
+
+
+def _close(out, exp, tol, what):
+    err = (out.float() - exp.float()).abs().max().item()
+    try:
+        torch.testing.assert_close(out.float(), exp.float(), atol=tol,
+                                   rtol=tol)
+    except AssertionError as e:
+        fail(f"{what}: {e}")
+    return err
+
+
+def phase_mamba_vs_plain(fwd, ref):
+    """y in bf16 within 2e-2, y in f32 and the final state within 1e-4 (the
+    kernel's exp is the SFU's, a few ulp off, and its sums contract into
+    fma); rows flagged idle keep their state bit for bit."""
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        for B, S, di, ds in MAMBA_SWEEP:
+            c = mamba_case(B, S, di, ds, seed=S, dtype=dtype)
+            out = fwd(*mamba_args(c))
+            torch.cuda.synchronize()
+            worst[dname] = max(worst[dname], _close(
+                out, ref(*mamba_args(c)), TOL[dname],
+                f"mamba_scan sweep {dname} {(B, S, di, ds)}"))
+    print(f"mamba_scan vs plain, sweep of test_mamba_scan_vs_ref, zero "
+          f"state: max abs err bf16 {worst['bfloat16']:.3e} (tol 2e-2), "
+          f"f32 {worst['float32']:.3e} (tol 1e-4)")
+    tol = TOL["float32"]
+    for S in (1, 150):
+        for dtype in (torch.bfloat16, torch.float32):
+            c = mamba_case(2, S, 192, 16, seed=S, dtype=dtype, state=True)
+            y, h = fwd(*mamba_args(c), h0=c["h0"], out_dtype=torch.float32,
+                       return_state=True)
+            torch.cuda.synchronize()
+            ey, eh = ref(*mamba_args(c), h0=c["h0"], out_dtype=torch.float32,
+                         return_state=True)
+            e_y = _close(y, ey, tol, f"mamba_scan y with h0, S={S}")
+            e_h = _close(h, eh, tol, f"mamba_scan state, S={S}")
+            print(f"mamba_scan vs plain, h0 given, S={S}, {dtype}: max abs "
+                  f"err y {e_y:.3e}, state {e_h:.3e} (tol 1e-4)")
+    errs = {}
+    for name, shape in (("decode", MAMBA_DECODE), ("prefill", MAMBA_PREFILL)):
+        c = served_mamba_case(shape)
+        rows = c.get("rows")
+        buf = c["h0"].clone()                    # the state, in place
+        y = fwd(*mamba_args(c), h0=buf, out_dtype=torch.float32, rows=rows,
+                state_out=buf)
+        torch.cuda.synchronize()
+        ey, eh = ref(*mamba_args(c), h0=c["h0"], out_dtype=torch.float32,
+                     return_state=True, rows=rows)
+        errs[name] = (_close(y, ey, tol, f"mamba_scan {name} y"),
+                      _close(buf, eh, tol, f"mamba_scan {name} state"))
+        if rows is not None and not torch.equal(buf[~rows], c["h0"][~rows]):
+            fail(f"mamba_scan {name}: an idle row's state changed")
+        print(f"mamba_scan vs plain at the served {name} shape "
+              f"(B,S,di,ds)={shape}, state in place: max abs err y "
+              f"{errs[name][0]:.3e}, state {errs[name][1]:.3e} (tol 1e-4)"
+              + ("; idle rows' y written, their state unchanged bit for bit"
+                 if rows is not None else ""))
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: jamba-1.5-large served at full width (depth cut to 4 of 72)
+# ---------------------------------------------------------------------------
+
+JAMBA_LAYERS = 4     # the first half of one 8-layer block: 46.0 GB of bf16
+
+
+def jamba_config():
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("jamba-1.5-large-398b")
+    return dataclasses.replace(cfg, n_layers=JAMBA_LAYERS,
+                               period=cfg.period[:JAMBA_LAYERS])
+
+
+def phase_serve_jamba(mamba_fwd, paged_fwd, kernels):
+    from repro_torch.models import ssm
+    from repro_torch.models.config import MAMBA, MOE
+    from repro_torch.models.layers import (attn_apply, ffn_apply, moe_apply,
+                                           rmsnorm)
+    from repro_torch.models.transformer import (_period, embed_inputs,
+                                                forward, init_params, unembed)
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    cfg = jamba_config()
+    n_mamba = sum(sp.mixer == MAMBA for sp in cfg.period)    # 3
+    n_attn = len(cfg.period) - n_mamba                       # 1
+    t0 = time.time()
+    params = init_params(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"jamba-1.5-large-398b, {JAMBA_LAYERS} of 72 layers "
+          f"({', '.join(f'{sp.mixer}+{sp.ffn}' for sp in cfg.period)}): "
+          f"{n_params / 1e9:.3f} B parameters drawn on the card in "
+          f"{time.time() - t0:.1f}s (d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k} of width "
+          f"{cfg.d_expert}, Mamba d_inner {cfg.mamba_d_inner}); "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    eng = ServingEngine(params, cfg, slots=8, cache_len=1024, page_size=16,
+                        chunk=128, paged=True, use_kernel=True, device="cuda")
+    t0 = time.time()
+    eng.warmup()
+    print(f"warmup: {time.time() - t0:.1f}s")
+    # the 16 requests of the rwkv6-7b phase without its 1,500-token one,
+    # which jamba's attention layer bounds by cache_len
+    reqs = make_rwkv_requests(Request, cfg.vocab_size)[:16]
+    for r in reqs:
+        eng.submit(r)
+    rec = time_steps(eng)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)                # count only the main path's run
+    torch.cuda.synchronize()
+    t0 = time.time()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"mamba_scan": mamba_fwd.launches,
+                "paged_attention": paged_fwd.launches}
+    st = eng.stats
+    calls = st["prefill_calls"] + st["decode_calls"]
+    if len(done) != 16 or any(len(r.generated) != 32 for r in done):
+        fail("not every jamba request finished with 32 tokens")
+    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.generated):
+        fail("a generated token lies outside the vocabulary")
+    if st["shared_pages"] != 0:
+        fail("an MoE / Mamba engine shared a page")
+    if launches["mamba_scan"] != calls * n_mamba:
+        fail(f"mamba_scan launches {launches['mamba_scan']} != (prefill_calls "
+             f"{st['prefill_calls']} + decode_calls {st['decode_calls']}) x "
+             f"{n_mamba}")
+    if launches["paged_attention"] != st["decode_calls"] * n_attn:
+        fail(f"paged_attention launches {launches['paged_attention']} != "
+             f"decode_calls {st['decode_calls']} x {n_attn}")
+    print(f"served 16 requests x 32 tokens in {wall:.2f}s: "
+          f"{st['prefill_calls']} prefill calls, {st['decode_calls']} decode "
+          f"ticks, {st['shared_pages']} shared pages; mamba_scan launches "
+          f"{launches['mamba_scan']} = {calls} x {n_mamba}, paged_attention "
+          f"launches {launches['paged_attention']} = {st['decode_calls']} x "
+          f"{n_attn}")
+    timing = serving_times(rec, wall)
+
+    # a served state: 8 new requests admitted through the kernel path
+    del eng._call_step                   # back to the untimed step
+    for r in make_rwkv_requests(Request, cfg.vocab_size, seed=1, n=8):
+        eng.submit(r)
+    eng._admit()
+
+    def layerwise(toks, pos, what):
+        """Each layer's mixer through its kernel and through the plain path
+        on the same input: the plain path's residual stream feeds both, so
+        no difference is carried from one layer to the next.  Mixer outputs
+        (bf16) within 2e-2 of their scale, Mamba state (f32) within 1e-4 of
+        its scale, conv history bit for bit (a copy of the same input)."""
+        ck, cp = copy.deepcopy(eng.caches), copy.deepcopy(eng.caches)
+        table = eng._table_arg()
+        valid = (pos >= 0).any(dim=1)
+        x = embed_inputs(params, cfg, {"tokens": toks})
+        worst_o = worst_s = 0.0
+        for stack in cfg.stacks:
+            for t in range(stack.n_periods):
+                pp = _period(params["stack"], t)
+                pk, pq = _period(ck["stack"], t), _period(cp["stack"], t)
+                for j, spec in enumerate(stack.period):
+                    h = rmsnorm(x, pp[j]["norm1"], cfg.norm_eps)
+                    outs = []
+                    for c, k in ((pk[j], True), (pq[j], False)):
+                        if spec.mixer == MAMBA:
+                            o, _ = ssm.mamba_apply(pp[j]["mixer"], h, cfg,
+                                                   cache=c, valid=valid,
+                                                   use_kernel=k)
+                        else:
+                            o, _ = attn_apply(pp[j]["mixer"], h, cfg,
+                                              positions=pos, cache=c,
+                                              masked_slots=True,
+                                              table=table, use_kernel=k)
+                        outs.append(o)
+                    ok, op = outs
+                    e_o = ((ok.float() - op.float()).abs().max()
+                           / op.float().abs().max().clamp(min=1e-30)).item()
+                    e_s = 0.0
+                    if spec.mixer == MAMBA:
+                        e_s = ((pk[j]["h"] - pq[j]["h"]).abs().max()
+                               / pq[j]["h"].abs().max().clamp(min=1e-30)
+                               ).item()
+                        if not torch.equal(pk[j]["conv"], pq[j]["conv"]):
+                            fail(f"{what}: layer {j}: the conv history "
+                                 f"differs between kernel and plain")
+                    if e_o > 2e-2 or e_s > 1e-4:
+                        fail(f"{what}: layer {j} ({spec.mixer}): kernel vs "
+                             f"plain mixer output {e_o}, state {e_s} of "
+                             f"scale")
+                    worst_o, worst_s = max(worst_o, e_o), max(worst_s, e_s)
+                    x = x + op
+                    h = rmsnorm(x, pp[j]["norm2"], cfg.norm_eps)
+                    x = x + (moe_apply(pp[j]["ffn"], h, cfg)[0]
+                             if spec.ffn == MOE else ffn_apply(pp[j]["ffn"], h))
+        kernels_used = ("the paged-decode kernel and mamba_scan"
+                        if toks.shape[1] == 1 else "mamba_scan")
+        print(f"{what}, layer by layer on the same input ({cfg.n_layers} "
+              f"layers through {kernels_used}): kernel vs plain mixer output max "
+              f"err {worst_o:.3e} of its scale (tol 2e-2), Mamba state "
+              f"{worst_s:.3e} (tol 1e-4), conv history bit for bit")
+
+    def step_logits(prm, caches, toks, pos, use_kernel, kv_chunk=1024):
+        h, _, _ = forward(prm, cfg, {"tokens": toks}, caches=caches,
+                          positions=pos, masked_slots=True,
+                          block_table=eng._table_arg(), compute_logits=False,
+                          kv_chunk=kv_chunk, use_kernel=use_kernel)
+        return unembed(prm, cfg, h[:, -1:, :])[:, 0]
+
+    def end_to_end(toks, pos, what):
+        """One step of the whole model through the kernels and through the
+        plain path, from copies of the served caches.
+
+        bf16 (the served arithmetic): the plain path run again with its
+        attention summed in 16-position chunks instead of one 1024-position
+        chunk measures the rounding floor of this step; live slots' greedy
+        tokens must be equal wherever the plain path's top-2 margin exceeds
+        that floor (MoE routing amplifies one-ulp differences, see
+        PERF.md).  float32 activations (the embedding upcast; bf16 weights
+        upcast exactly in each matmul; TF32 off): live slots' logits within
+        1e-4 of the logit scale (the card reads about 5e-6 of it, the
+        float32 summation-order difference; PERF.md) and equal greedy
+        tokens.  Idle slots keep their Mamba state and conv history bit
+        for bit on every path."""
+        live = (pos >= 0).any(dim=1)
+        idle = torch.nonzero(~live).flatten()
+        n = int(live.sum())
+        before = copy.deepcopy(eng.caches)
+        runs = {}
+        for name, use_kernel, kv_chunk in (("kernel", True, 1024),
+                                           ("plain", False, 1024),
+                                           ("plain, 16-position chunks",
+                                            False, 16)):
+            c = copy.deepcopy(eng.caches)
+            runs[name] = step_logits(params, c, toks, pos, use_kernel,
+                                     kv_chunk)[live]
+            for layer, old in zip(c["stack"], before["stack"]):
+                for leaf in ("h", "conv"):
+                    if leaf in layer and not torch.equal(
+                            layer[leaf][:, idle], old[leaf][:, idle]):
+                        fail(f"{what} ({name}): an idle slot's {leaf} changed")
+            del c
+        lk, lp, lr = (runs[k] for k in runs)
+        if lk.shape != (n, cfg.vocab_size) or not torch.isfinite(lk).all():
+            fail(f"{what}: logits are not finite ({n}, vocab)")
+        scale = max(1.0, lp.abs().max().item())
+        err = (lk - lp).abs().max().item()
+        floor = (lr - lp).abs().max().item()
+        top2 = lp.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        clear = margin > floor
+        same = lk.argmax(-1) == lp.argmax(-1)
+        print(f"{what}, whole model in bf16: max |dlogit| kernel vs plain "
+              f"{err:.4e}, rounding floor (plain, attention in 16-position "
+              f"chunks) {floor:.4e}, over {n} live slot(s) at logit scale "
+              f"{scale:.3f}; greedy equal in {int(same.sum())}/{n}, "
+              f"{int(clear.sum())} with a top-2 margin above the floor "
+              f"(smallest margin {margin.min().item():.4e})")
+        if not bool(same[clear].all()):
+            fail(f"{what}: a live slot's greedy token differs where the "
+                 f"top-2 margin exceeds the rounding floor {floor}")
+        del runs, lk, lp, lr
+        params32 = dict(params, embed=params["embed"].float())
+        lk, lp = (step_logits(params32, f32_copy(eng.caches), toks, pos, k)
+                  [live] for k in (True, False))
+        del params32
+        err = (lk - lp).abs().max().item()
+        scale = max(1.0, lp.abs().max().item())
+        same = int((lk.argmax(-1) == lp.argmax(-1)).sum())
+        top2 = lp.topk(2, dim=-1).values
+        print(f"{what}, whole model in float32 activations: max |dlogit| "
+              f"kernel vs plain {err:.4e} over {n} live slot(s) at logit "
+              f"scale {scale:.3f} (tol {1e-4 * scale:.4e}); greedy equal in "
+              f"{same}/{n} (smallest top-2 margin "
+              f"{(top2[:, 0] - top2[:, 1]).min().item():.4e})")
+        if err > 1e-4 * scale:
+            fail(f"{what}: float32 kernel-path logits differ from the plain "
+                 f"path by {err} (tol {1e-4 * scale})")
+        if same != n:
+            fail(f"{what}: a live slot's float32 greedy token differs")
+
+    # one decode tick, every slot live
+    toks = torch.tensor([[eng.active[s].pending] for s in range(8)],
+                        dtype=torch.int32, device="cuda")
+    pos = torch.tensor([[eng.positions[s]] for s in range(8)],
+                       dtype=torch.int32, device="cuda")
+    for s in range(8):
+        eng._ensure_blocks(s, eng.positions[s], eng.positions[s])
+    layerwise(toks, pos, "decode tick")
+    end_to_end(toks, pos, "decode tick")
+    # one 128-token prefill chunk into slot MAMBA_LIVE_ROW, the others idle
+    s = MAMBA_LIVE_ROW
+    g = torch.Generator().manual_seed(2)
+    toks = torch.zeros((8, 128), dtype=torch.int32)
+    toks[s] = torch.randint(0, cfg.vocab_size, (128,), generator=g)
+    pos = torch.full((8, 128), -1, dtype=torch.int32)
+    pos[s] = torch.arange(eng.positions[s], eng.positions[s] + 128)
+    need = 128 // eng.page_size          # pool pages the chunk may touch
+    if not eng._alloc.reserve(need):
+        fail("no pool pages left for the prefill chunk")
+    eng._slot_reserved[s] += need
+    eng._ensure_blocks(s, eng.positions[s], eng.positions[s] + 127)
+    toks, pos = toks.cuda(), pos.cuda()
+    layerwise(toks, pos, "prefill chunk")
+    end_to_end(toks, pos, "prefill chunk")
+    timing.update(profile_ticks(eng))
+    return launches, timing
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: mamba_scan times at the served shapes
+# ---------------------------------------------------------------------------
+
+def mamba_bound(c):
+    """Least time for one call on these operands: every input read once
+    (the state of every row, since every row's output needs it), y (f32)
+    written once and the state of the updated rows written once; per state
+    element and step one exp (at the SFU rate) and six float32 flops
+    (dt*a; a multiply and a multiply-add for the update; a multiply-add
+    for y)."""
+    B, S, di = c["x"].shape
+    ds = c["b"].shape[-1]
+    rows = B if "rows" not in c else int(c["rows"].sum())
+    isz = c["x"].element_size()
+    byts = (2 * B * S * di * isz + 2 * B * S * ds * isz + di * ds * 4
+            + B * di * ds * 4 + rows * di * ds * 4 + B * S * di * 4
+            + (B if "rows" in c else 0))
+    elems = B * S * di * ds
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = max(6 * elems / F32_FLOPS, elems / SFU_EXP_PER_S) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), byts, elems
+
+
+def phase_mamba_kernel_times(fwd, ref):
+    out = {}
+    for name, shape, n_bufs, reps, plain_reps in (
+            ("decode", MAMBA_DECODE, 8, 400, 20),
+            ("prefill", MAMBA_PREFILL, 2, 50, 3)):
+        # enough states / operands in turn that L2 (50 MB) holds none of
+        # the previous launch's, as in serving (each layer has its own)
+        cases = [served_mamba_case(shape, seed=i) for i in range(n_bufs)]
+
+        def kern(i):
+            c = cases[i % n_bufs]
+            return fwd(*mamba_args(c), h0=c["h0"], out_dtype=torch.float32,
+                       rows=c.get("rows"), state_out=c["h0"])
+
+        def plain(i):
+            c = cases[i % n_bufs]
+            return ref(*mamba_args(c), h0=c["h0"], out_dtype=torch.float32,
+                       return_state=True, rows=c.get("rows"))
+        for i in range(3):
+            kern(i)
+        ms = event_ms(kern, reps)
+        plain_ms = event_ms(plain, plain_reps)
+        bound_ms, bound_by, byts, elems = mamba_bound(cases[0])
+        c = served_mamba_case(shape, seed=99)
+        y = fwd(*mamba_args(c), h0=c["h0"], out_dtype=torch.float32,
+                rows=c.get("rows"))
+        ey = ref(*mamba_args(c), h0=c["h0"], out_dtype=torch.float32)
+        err = (y - ey).abs().max().item()
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None,
+                     "max_abs_err": err}
+        print(f"mamba_scan at the served {name} shape (B,S,di,ds)={shape}: "
+              f"kernel {ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by}: {byts / 1e6:.2f} MB = "
+              f"{byts / HBM_BYTES_PER_S * 1e6:.2f} us; {elems / 1e6:.1f} M "
+              f"exps = {elems / SFU_EXP_PER_S * 1e6:.2f} us; "
+              f"{6 * elems / 1e9:.3f} GFLOP f32 = "
+              f"{6 * elems / F32_FLOPS * 1e6:.2f} us), plain "
+              f"{plain_ms * 1e3:.1f} us, library none")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the flash attention kernel against its plain version
 # ---------------------------------------------------------------------------
 
 FLASH_SWEEP = [  # (B, Hq, Hkv, S, T, D, window): tests/test_kernels.py:17-34
@@ -1045,7 +1512,7 @@ def phase_flash_times(fwd, ref):
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: qwen3-8b trained at full width (depth cut to 8 layers)
+# Phase 12: qwen3-8b trained at full width (depth cut to 8 layers)
 # ---------------------------------------------------------------------------
 
 TRAIN_LAYERS = 8                 # of 36: 44.6 GB of state (16 B / param)
@@ -1250,11 +1717,13 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.mamba_scan import mamba_scan_fwd
     from repro_torch.kernels.paged_attention import paged_attention_fwd
-    from repro_torch.kernels.ref import (flash_attention_ref,
+    from repro_torch.kernels.ref import (flash_attention_ref, mamba_scan_ref,
                                          paged_attention_ref, rwkv_scan_ref)
     from repro_torch.kernels.rwkv_scan import rwkv_scan_fwd
-    kernels = (paged_attention_fwd, rwkv_scan_fwd, flash_attention_fwd)
+    kernels = (paged_attention_fwd, rwkv_scan_fwd, mamba_scan_fwd,
+               flash_attention_fwd)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1276,23 +1745,41 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_flash_backward()
     pa_launches, _ = phase_serve(paged_attention_fwd, kernels)
-    pa_times = phase_kernel_times(paged_attention_fwd, paged_attention_ref)
+    pa_times = phase_kernel_times(paged_attention_fwd, paged_attention_ref,
+                                  QWEN3_HQ, "qwen3-8b")
     gc.collect()                         # qwen3-8b's weights go first
     torch.cuda.empty_cache()
     rw_launches, _ = phase_serve_rwkv(rwkv_scan_fwd, kernels)
     gc.collect()
     torch.cuda.empty_cache()
     rw_times = phase_rwkv_kernel_times(rwkv_scan_fwd, rwkv_scan_ref)
+    phase_mamba_vs_plain(mamba_scan_fwd, mamba_scan_ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+    jamba_launches, _ = phase_serve_jamba(mamba_scan_fwd, paged_attention_fwd,
+                                          kernels)
+    gc.collect()                         # jamba's 46 GB go before training
+    torch.cuda.empty_cache()
+    mb_times = phase_mamba_kernel_times(mamba_scan_fwd, mamba_scan_ref)
+    pa_jamba = phase_kernel_times(paged_attention_fwd, paged_attention_ref,
+                                  JAMBA_HQ, "jamba-1.5-large")
     gc.collect()
     torch.cuda.empty_cache()
     fa_launches, _, _ = phase_train(flash_attention_fwd, kernels)
     fa_times = phase_flash_times(flash_attention_fwd, flash_attention_ref)
 
     result = [
+        # qwen3-8b's decode shape leads; jamba's (G = 8) follows with the
+        # launches of its own served run
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:201",
-         "launches": pa_launches, **pa_times},
+         "launches": pa_launches, **pa_times,
+         "shapes": {"qwen3-8b decode B=8 Hq=32 Hkv=8 D=128":
+                        dict(pa_times, launches=pa_launches),
+                    "jamba-1.5-large decode B=8 Hq=64 Hkv=8 D=128":
+                        dict(pa_jamba,
+                             launches=jamba_launches["paged_attention"])}},
         # the decode shape leads (every tick runs it); both shapes follow
         {"name": "rwkv_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rwkv_scan.cu",
@@ -1301,6 +1788,14 @@ def main() -> int:
          "shapes": {"decode B=8 S=1 H=64 hd=64": rw_times["decode"],
                     "prefill B=8 S=128 H=64 hd=64, 1 live row":
                         rw_times["prefill"]}},
+        # jamba-1.5-large's decode shape leads; both shapes follow
+        {"name": "mamba_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+         "replaces": "src/repro/kernels/ssm_scan.py:59",
+         "launches": jamba_launches["mamba_scan"], **mb_times["decode"],
+         "shapes": {"decode B=8 S=1 di=16384 ds=16": mb_times["decode"],
+                    "prefill B=8 S=128 di=16384 ds=16, 1 live row":
+                        mb_times["prefill"]}},
         # the training shape: qwen3-8b, B=2, S=4096, bf16, causal
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

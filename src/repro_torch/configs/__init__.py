@@ -1,6 +1,7 @@
 """Architecture registry of the port: the configs whose serving path is
 ported — the dense full-attention ones (``gpt3-24l``, ``qwen3-8b``,
-``llama3-405b``, ``qwen1.5-32b``) and the attention-free ``rwkv6-7b``.
+``llama3-405b``, ``qwen1.5-32b``), the attention-free ``rwkv6-7b`` and
+the Mamba + attention + MoE hybrid ``jamba-1.5-large-398b``.
 
 Each ``<arch>.py`` module exports ``CONFIG`` (the exact spec, source
 cited) and ``SMOKE`` (a reduced same-family variant runnable on the CPU).
@@ -20,10 +21,11 @@ _ARCH_MODULES = {
     "llama3-405b": "llama3_405b",
     "qwen1.5-32b": "qwen1_5_32b",
     "rwkv6-7b": "rwkv6_7b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 # archs of the JAX package whose mixers / FFNs are not ported yet
-_NOT_YET_PORTED = ("jamba-1.5-large-398b", "gemma3-12b",
+_NOT_YET_PORTED = ("gemma3-12b",
                    "llava-next-mistral-7b", "musicgen-medium",
                    "qwen3-moe-235b-a22b", "deepseek-v3-671b",
                    "bert-large")

@@ -9,6 +9,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention import FlashAttention
+from repro_torch.kernels.mamba_scan import mamba_scan_fwd
 from repro_torch.kernels.paged_attention import paged_attention_fwd
 from repro_torch.kernels.rwkv_scan import rwkv_scan_fwd
 
@@ -23,6 +24,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     differentiable, with the kernel as the forward and a plain blocked
     backward (see ``kernels.flash_attention``)."""
     return FlashAttention.apply(q, k, v, causal, window, scale)
+
+
+def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+               c: torch.Tensor, a: torch.Tensor, *,
+               h0: Optional[torch.Tensor] = None,
+               out_dtype: Optional[torch.dtype] = None,
+               return_state: bool = False,
+               rows: Optional[torch.Tensor] = None,
+               state_out: Optional[torch.Tensor] = None):
+    """Mamba selective scan: x, dt (B,S,di); b, c (B,S,ds); a (di,ds)
+    -> y (B,S,di) [, final state (B,di,ds)].  With the defaults, the
+    result of ``repro.kernels.ops.mamba_scan`` (without its TPU tiling
+    arguments); ``h0`` / ``return_state`` / ``state_out`` / ``rows``
+    carry a serving cache's state through it (see
+    ``kernels.mamba_scan.mamba_scan_fwd``)."""
+    return mamba_scan_fwd(x, dt, b, c, a, h0=h0, out_dtype=out_dtype,
+                          return_state=return_state, rows=rows,
+                          state_out=state_out)
 
 
 def paged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -74,6 +74,46 @@ def paged_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, 1, Hq, Dv).to(q.dtype)
 
 
+def mamba_scan_ref(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor, a: torch.Tensor, *,
+                   h0: Optional[torch.Tensor] = None,
+                   out_dtype: Optional[torch.dtype] = None,
+                   return_state: bool = False,
+                   rows: Optional[torch.Tensor] = None):
+    """Mamba selective scan, one time step after another.
+
+    x, dt: (B, S, di); b, c: (B, S, ds); a: (di, ds) float32 (negative);
+    h0: (B, di, ds) float32 or None (zeros).  Per step, in float32 (the
+    arithmetic of ``repro.models.ssm._mamba_step``):
+    ``h <- exp(dt_t a) h + (dt_t x_t) b_t`` and ``y_t = h . c_t``.
+    Returns y (B, S, di) in ``out_dtype`` (default x.dtype), and the
+    final state too when ``return_state``.  ``rows`` (B,) bool: rows that
+    are False return ``h0`` as their final state (their outputs are
+    still computed).
+
+    With ``h0=None`` and the default output type this is
+    ``repro.kernels.ref.mamba_scan_ref`` (and the Pallas ``mamba_scan``);
+    with ``h0`` and float32 output it is the JAX model's scan of
+    ``_mamba_step`` from a cached state."""
+    B, S, di = x.shape
+    ds = b.shape[-1]
+    a = a.float()
+    h = (torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        x_t, dt_t, b_t, c_t = (v[:, t].float() for v in (x, dt, b, c))
+        dA = torch.exp(dt_t[..., None] * a)                  # (B,di,ds)
+        h = dA * h + (dt_t * x_t)[..., None] * b_t[:, None, :]
+        ys.append(torch.einsum("bds,bs->bd", h, c_t))
+    y = torch.stack(ys, dim=1).to(out_dtype or x.dtype)
+    if not return_state:
+        return y
+    if rows is not None:
+        h = torch.where(rows.reshape(B, 1, 1), h, 0.0 if h0 is None else h0)
+    return y, h
+
+
 def rwkv_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   w: torch.Tensor, u: torch.Tensor, *,
                   s0: Optional[torch.Tensor] = None,

@@ -5,14 +5,16 @@ The flags are the single-engine flags of ``repro.launch.serve``:
 ``--paged`` (default on) stores KV through a block table with
 content-addressed prefix sharing (``--no-prefix-share`` turns it off,
 ``--prefix-tokens N`` prepends a shared system prompt); ``--kernel``
-runs each mixer's Hopper kernel (paged decode attention, the RWKV
-recurrence in prefill and decode); ``--temperature`` /
+runs each mixer's Hopper kernel (paged decode attention, the Mamba and
+RWKV recurrences in prefill and decode); ``--temperature`` /
 ``--top-p`` / ``--top-k`` / ``--rep-penalty`` choose tokens per slot;
 ``--warmup`` (default on) runs both engine shapes ahead of traffic.
 
     python -m repro_torch.launch.serve --arch qwen3-8b --kernel
     python -m repro_torch.launch.serve --device cpu --requests 6 --chunk 4
     python -m repro_torch.launch.serve --device cpu --arch rwkv6-7b --kernel
+    python -m repro_torch.launch.serve --device cpu \
+        --arch jamba-1.5-large-398b --kernel
 """
 from __future__ import annotations
 
@@ -62,10 +64,10 @@ def main(argv=None):
                          "to every request (exercises prefix sharing)")
     ap.add_argument("--kernel", action="store_true",
                     help="run each mixer's Hopper kernel: decode attention "
-                         "through the paged-decode kernel, the RWKV "
-                         "recurrence (prefill and decode) through rwkv_scan "
-                         "(paged mode only; their plain PyTorch versions "
-                         "on the CPU)")
+                         "through the paged-decode kernel, the Mamba and "
+                         "RWKV recurrences (prefill and decode) through "
+                         "mamba_scan / rwkv_scan (paged mode only; their "
+                         "plain PyTorch versions on the CPU)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="per-request sampling temperature (0 = greedy)")
     ap.add_argument("--top-p", type=float, default=1.0,

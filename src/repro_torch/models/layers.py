@@ -1,13 +1,15 @@
-"""Dense decoder layers in PyTorch: the counterparts of
-``repro.models.layers`` for full-attention, dense-FFN models.
+"""Decoder layers in PyTorch: the counterparts of ``repro.models.layers``
+for full-attention models with dense or mixture-of-experts FFNs.
 
 Layer math is plain functions on tensors; parameters are nested dicts of
 tensors under the JAX package's key names.  Unlike the JAX package, the
 cache writes (``ring_write`` and the helpers above it) update the cache
 tensors IN PLACE and return them, so a serving engine keeps one copy of
 its pools.  Sliding-window attention (``attn_apply`` with ``window > 0``)
-and MoE wait for later slices of the port.  Every function here is
-differentiable by autograd when it runs without a cache (training).
+waits for a later slice of the port.  The dense layers are
+differentiable by autograd when they run without a cache (training);
+MoE is forward only, like the reference (its ``optimization_barrier``
+has no differentiation rule).
 """
 from __future__ import annotations
 
@@ -441,3 +443,128 @@ def ffn_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     g = F.silu(x @ p["w_gate"].to(x.dtype))
     u = x @ p["w_up"].to(x.dtype)
     return row_dot(g * u, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts — sort-based dispatch (no (T,E,C) one-hot einsums)
+# ---------------------------------------------------------------------------
+
+def _expert_stack_init(gen: torch.Generator, E: int, d_in: int, d_out: int,
+                       *, scale: float = 1.0, lead=(),
+                       device=None) -> torch.Tensor:
+    """(*lead, E, d_in, d_out) bf16 expert matrices with ``dense_init``'s
+    distribution, drawn one expert at a time into the bf16 tensor: a
+    full-width stack (16 x 8192 x 24576) drawn whole in float32 would
+    need about 26 GB of temporaries."""
+    w = torch.empty((*lead, E, d_in, d_out), dtype=torch.bfloat16,
+                    device=device)
+    for m in w.view(-1, d_in, d_out):
+        m.copy_(dense_init(gen, d_in, d_out, scale=scale, device=device))
+    return w
+
+
+def moe_init(gen: torch.Generator, cfg, lead=(), device=None) -> dict:
+    d, f, e = cfg.d_model, cfg.d_expert, cfg.n_experts
+    kw = dict(lead=lead, device=device)
+    p = {
+        "router": dense_init(gen, d, e, dtype=torch.float32, **kw),
+        "w_gate": _expert_stack_init(gen, e, d, f, **kw),
+        "w_up": _expert_stack_init(gen, e, d, f, **kw),
+        "w_down": _expert_stack_init(
+            gen, e, f, d, scale=1.0 / math.sqrt(2 * cfg.n_layers), **kw),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = ffn_init(gen, cfg, cfg.d_expert * cfg.n_shared_experts,
+                               **kw)
+    return p
+
+
+def _moe_dispatch_group(xt: torch.Tensor, gate_vals: torch.Tensor,
+                        expert_idx: torch.Tensor, E: int, K: int, C: int):
+    """Sort-based dispatch for ONE token group.  xt: (Tg, d);
+    gate_vals / expert_idx: (Tg, K).  Returns (buf (E,C,d), slot,
+    src_token, gates_sorted) for the gather-back.
+
+    Assignment j (token j // K) goes to row ``rank`` of its expert's
+    capacity buffer, where ``rank`` counts the earlier assignments to the
+    same expert in token order (a STABLE sort keeps that order); ranks
+    >= C are dropped into a trash row E*C.  No step waits for the
+    device: the only host value is C, computed from shapes."""
+    Tg, d = xt.shape
+    flat_e = expert_idx.reshape(Tg * K)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    first_of_group = torch.searchsorted(sorted_e, sorted_e, side="left")
+    rank = torch.arange(Tg * K, device=xt.device) - first_of_group
+    keep = rank < C
+    slot = torch.where(keep, sorted_e * C + rank, E * C)       # E*C = trash
+    src_token = torch.div(order, K, rounding_mode="floor")
+    # kept slots are distinct; the trash row takes every dropped one (all
+    # zeros), so the order of the writes cannot matter
+    buf = torch.zeros((E * C + 1, d), dtype=xt.dtype, device=xt.device)
+    buf.index_put_((slot,), xt[src_token] * keep[:, None].to(xt.dtype))
+    gates_sorted = gate_vals.reshape(Tg * K)[order] * keep
+    return buf[:-1].reshape(E, C, d), slot, src_token, gates_sorted
+
+
+def moe_capacity(T: int, cfg) -> int:
+    """Per-expert buffer rows for a group of T tokens: ``capacity_factor``
+    times the even share T*K/E, rounded up to a multiple of 8 and capped
+    at T*K (``repro.models.layers.moe_apply``)."""
+    K = cfg.top_k
+    C = max(1, int(math.ceil(T * K / cfg.n_experts * cfg.capacity_factor)))
+    C = -(-C // 8) * 8
+    return min(C, T * K)
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg):
+    """Sort-based top-k MoE.  x: (B,S,d) -> (out, aux_loss).
+
+    The reference's path on one device (one token group, G = 1): every
+    token of the call — idle serving rows' padding included — routes
+    through the router and fills the per-expert capacity in token order,
+    and assignments beyond capacity are dropped.  The experts run as
+    batched matmuls over the (E, C, d) buffer.  The Switch-style aux loss
+    is ``router_aux_coef * E * sum(mean prob * assignment fraction)``.
+    Expert parallelism over a mesh (``repro.models.moe_ep``) waits for
+    the distributed plane."""
+    B, S, d = x.shape
+    T = B * S
+    E, K = cfg.n_experts, cfg.top_k
+    C = moe_capacity(T, cfg)
+
+    xt = x.reshape(T, d)
+    logits = xt.float() @ p["router"].float()                   # (T,E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, K, dim=-1)        # (T,K)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
+
+    # --- load-balance auxiliary loss (Switch-style) ---------------------
+    me = probs.mean(dim=0)                                      # (E,)
+    ce = torch.zeros((E,), dtype=torch.float32, device=x.device)
+    ce.index_add_(0, expert_idx.reshape(-1),
+                  torch.full((T * K,), 1.0 / (T * K), device=x.device))
+    aux = cfg.router_aux_coef * E * torch.sum(me * ce)
+
+    buf, slot, src_token, gates_sorted = _moe_dispatch_group(
+        xt, gate_vals, expert_idx, E, K, C)
+
+    # --- batched expert FFN ----------------------------------------------
+    g = F.silu(torch.bmm(buf, p["w_gate"].to(x.dtype)))
+    u = torch.bmm(buf, p["w_up"].to(x.dtype))
+    h = torch.bmm(g * u, p["w_down"].to(x.dtype))               # (E,C,d)
+
+    # --- gather back + combine with gates --------------------------------
+    # each token receives at most K = 2 terms onto 0.0 in float32, and a
+    # sum of two terms is the same in either order, so the scatter-add is
+    # exact whatever order the device runs it in (for K > 2 it would not
+    # be bitwise reproducible)
+    h_flat = torch.cat([h.reshape(E * C, d),
+                        torch.zeros((1, d), dtype=h.dtype, device=h.device)])
+    per_assign = h_flat[slot].float() * gates_sorted[:, None]
+    out = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+    out.index_add_(0, src_token, per_assign)
+    out = out.to(x.dtype)
+    if "shared" in p:
+        out = out + ffn_apply(p["shared"], xt)
+    return out.reshape(B, S, d), aux

@@ -1,23 +1,24 @@
-"""Recurrent mixers in PyTorch: the counterparts of ``repro.models.ssm``.
+"""Recurrent mixers in PyTorch: the counterparts of ``repro.models.ssm``
+— Mamba (selective scan) and RWKV6 "Finch" (data-dependent decay).
 
-RWKV6 "Finch" (data-dependent decay) is ported; Mamba waits for a later
-slice (its only model, jamba, also needs MoE), and ``mamba_apply``
-raises.
-
-The wkv recurrence has two paths.  The plain one is the JAX version's
-sequential scan (``_rwkv_step`` under ``_chunked_scan``); with
-``use_kernel=True`` it runs through ``kernels.ops.rwkv_scan`` — the
-Hopper kernel on CUDA tensors, its plain version on CPU tensors — which
-starts from the cached state and writes the final state back into the
-cache's storage in place.  Both give the output ``o`` in float32, as
-the JAX step does, and ``rmsnorm`` normalises it in float32 before the
-cast to the activation dtype.
+Each recurrence has two paths.  The plain one is the JAX version's
+sequential scan (``kernels.ref.mamba_scan_ref``, the arithmetic of the
+JAX ``_mamba_step``; ``_rwkv_step`` under ``_chunked_scan``); with
+``use_kernel=True`` it runs through
+``kernels.ops.mamba_scan`` / ``kernels.ops.rwkv_scan`` — the Hopper
+kernel on CUDA tensors, its plain version on CPU tensors — which starts
+from the cached state and writes the final state back into the cache's
+storage in place.  Both give the scan's output in float32, as the JAX
+steps do.  (The JAX mixers run only the plain scans; the Pallas
+``ssm_scan`` kernels mirror them.  The port runs its kernels on the
+model path.)
 
 Serving caches carry a fixed-size recurrent state per slot — there is
 no sequence axis to page, so a paged engine keeps it per slot too.
-``rwkv_apply`` writes ``state`` and ``shift`` in place; rows whose
-``valid`` flag is False (idle serving slots, which ran the scan on
-padding) keep both bit for bit, with no host sync.
+``mamba_apply`` writes ``h`` and ``conv`` in place, ``rwkv_apply``
+``state`` and ``shift``; rows whose ``valid`` flag is False (idle
+serving slots, which ran the scan on padding) keep both bit for bit,
+with no host sync.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import mamba_scan_ref
 from repro_torch.models.layers import (dense_init, rmsnorm, rmsnorm_init,
                                        row_dot)
 
@@ -48,10 +50,107 @@ def _chunked_scan(step_fn, h0, xs, length: int):
     return h, torch.stack(ys)
 
 
-def mamba_apply(p: dict, x: torch.Tensor, cfg, *, cache=None):
-    raise NotImplementedError(
-        "repro_torch: the Mamba mixer is not ported yet (its only model, "
-        "jamba, also needs MoE)")
+# ===========================================================================
+# Mamba
+# ===========================================================================
+
+def mamba_init(gen: torch.Generator, cfg, lead=(), device=None) -> dict:
+    d, di, ds = cfg.d_model, cfg.mamba_d_inner, cfg.mamba_d_state
+    dtr, dc = cfg.mamba_dt_rank, cfg.mamba_d_conv
+    kw = dict(lead=lead, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    # S4D-real initialization for A
+    A = torch.arange(1, ds + 1, **f32).expand(*lead, di, ds)
+    # inverse softplus of U[1e-3, 1e-1], drawn log-uniformly
+    u = torch.rand((*lead, di), generator=gen, **f32)
+    dt = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+    return {
+        "in_proj": dense_init(gen, d, 2 * di, **kw),
+        "conv_w": (torch.randn((*lead, dc, di), generator=gen, **f32)
+                   / math.sqrt(dc)).to(torch.bfloat16),
+        "conv_b": torch.zeros((*lead, di), **f32),
+        "x_proj": dense_init(gen, di, dtr + 2 * ds, **kw),
+        "dt_proj": dense_init(gen, dtr, di, scale=dtr ** 0.5, **kw),
+        "dt_bias": torch.log(torch.expm1(dt)),
+        "A_log": torch.log(A),
+        "D": torch.ones((*lead, di), **f32),
+        "out_proj": dense_init(gen, di, d,
+                               scale=1.0 / math.sqrt(2 * cfg.n_layers), **kw),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 prev: Optional[torch.Tensor] = None):
+    """Depthwise causal conv over time.  x: (B,S,di), w: (K,di).
+    prev: (B,K-1,di) history for decode.  Returns (y, new_history); the
+    taps are summed in the JAX version's order, in x.dtype."""
+    K = w.shape[0]
+    if prev is None:
+        prev = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                           device=x.device)
+    xp = torch.cat([prev.to(x.dtype), x], dim=1)                 # (B,S+K-1,di)
+    S = x.shape[1]
+    y = xp[:, 0:S] * w[0].to(x.dtype)
+    for i in range(1, K):
+        y = y + xp[:, i:i + S] * w[i].to(x.dtype)
+    y = y + b.to(x.dtype)
+    return y, xp[:, -(K - 1):]
+
+
+def mamba_apply(p: dict, x: torch.Tensor, cfg, *,
+                cache: Optional[dict] = None,
+                valid: Optional[torch.Tensor] = None,
+                use_kernel: bool = False):
+    """Mamba block.  x: (B,S,d) -> (out, cache).  cache: {"h": (B,di,ds)
+    f32, "conv": (B,K-1,di)}, written in place.  ``valid`` (B,) bool:
+    rows that are False keep ``h`` and ``conv`` bit for bit.
+    ``use_kernel=True`` runs the selective scan through
+    ``ops.mamba_scan`` at every S."""
+    ds, dtr = cfg.mamba_d_state, cfg.mamba_dt_rank
+    xz = x @ p["in_proj"].to(x.dtype)
+    xs, z = xz.chunk(2, dim=-1)                                  # (B,S,di)
+    conv_prev = cache["conv"] if cache is not None else None
+    xs, conv_new = _causal_conv(xs, p["conv_w"], p["conv_b"], conv_prev)
+    xs = F.silu(xs)
+
+    proj = xs @ p["x_proj"].to(x.dtype)                          # (B,S,dtr+2ds)
+    dt, Bm, Cm = proj.split([dtr, ds, ds], dim=-1)
+    dt = F.softplus(dt @ p["dt_proj"].to(x.dtype)
+                    + p["dt_bias"].to(x.dtype))                  # (B,S,di)
+    A = -torch.exp(p["A_log"])                                   # (di,ds) f32
+
+    h0 = cache["h"] if cache is not None else None
+    if use_kernel:
+        # the final state lands in the cache's storage; rows that are not
+        # valid are left untouched there
+        y = ops.mamba_scan(xs, dt, Bm.contiguous(), Cm.contiguous(), A,
+                           h0=h0, out_dtype=torch.float32, rows=valid,
+                           state_out=h0)
+    else:
+        y, h1 = mamba_scan_ref(xs, dt, Bm, Cm, A, h0=h0,
+                               out_dtype=torch.float32, return_state=True,
+                               rows=valid)
+        if h0 is not None:
+            h0.copy_(h1)
+    y = y.to(x.dtype) + xs * p["D"].to(x.dtype)
+    y = y * F.silu(z)
+    out = row_dot(y, p["out_proj"])
+    if cache is not None:
+        if valid is not None:
+            conv_new = torch.where(valid[:, None, None], conv_new,
+                                   cache["conv"])
+        cache["conv"].copy_(conv_new)
+    return out, cache
+
+
+def mamba_cache_init(batch: int, cfg, dtype=torch.bfloat16, lead=(),
+                     device=None) -> dict:
+    return {
+        "h": torch.zeros((*lead, batch, cfg.mamba_d_inner, cfg.mamba_d_state),
+                         dtype=torch.float32, device=device),
+        "conv": torch.zeros((*lead, batch, cfg.mamba_d_conv - 1,
+                             cfg.mamba_d_inner), dtype=dtype, device=device),
+    }
 
 
 # ===========================================================================

@@ -1,5 +1,6 @@
-"""Decoder model of the port: full-attention or RWKV6 layers with SwiGLU
-FFNs, built from a ``ModelConfig`` like ``repro.models.transformer``.
+"""Decoder model of the port: full-attention, Mamba or RWKV6 layers with
+SwiGLU or mixture-of-experts FFNs, built from a ``ModelConfig`` like
+``repro.models.transformer``.
 
 Parameters and decode caches are nested dicts under the JAX package's
 key names.  Stack leaves carry a leading ``n_periods`` axis; ``forward``
@@ -19,19 +20,21 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.models import ssm
-from repro_torch.models.config import ATTN, DENSE, RWKV, ModelConfig
+from repro_torch.models.config import (ATTN, DENSE, MAMBA, MOE, RWKV,
+                                       ModelConfig)
 from repro_torch.models.layers import (attn_apply, attn_init, cache_init,
                                        dense_init, embed_init, ffn_apply,
-                                       ffn_init, paged_cache_init, rmsnorm,
+                                       ffn_init, moe_apply, moe_init,
+                                       paged_cache_init, rmsnorm,
                                        rmsnorm_init)
 from repro_torch.tree import leaves
 
 
 def _check_layer(spec) -> None:
-    if spec.mixer not in (ATTN, RWKV) or spec.ffn != DENSE:
+    if spec.mixer not in (ATTN, MAMBA, RWKV) or spec.ffn not in (DENSE, MOE):
         raise NotImplementedError(
-            f"repro_torch: layer {spec} is not ported yet (full-attention "
-            f"and RWKV6 layers with dense FFNs only)")
+            f"repro_torch: layer {spec} is not ported yet (full-attention, "
+            f"Mamba and RWKV6 layers with dense or MoE FFNs only)")
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -50,12 +53,14 @@ def check_ported(cfg: ModelConfig) -> None:
 def layer_init(gen: torch.Generator, spec, cfg: ModelConfig, lead=(),
                device=None) -> dict:
     _check_layer(spec)
-    mixer = (ssm.rwkv_init(gen, cfg, lead, device) if spec.mixer == RWKV
-             else attn_init(gen, cfg, lead, device))
+    mixer_init = {ATTN: attn_init, MAMBA: ssm.mamba_init,
+                  RWKV: ssm.rwkv_init}[spec.mixer]
+    mixer = mixer_init(gen, cfg, lead, device)      # drawn before the FFN
+    ffn = (moe_init(gen, cfg, lead, device) if spec.ffn == MOE
+           else ffn_init(gen, cfg, lead=lead, device=device))
     return {"norm1": rmsnorm_init(cfg.d_model, lead, device),
             "norm2": rmsnorm_init(cfg.d_model, lead, device),
-            "mixer": mixer,
-            "ffn": ffn_init(gen, cfg, lead=lead, device=device)}
+            "mixer": mixer, "ffn": ffn}
 
 
 def layer_cache_init(spec, cfg: ModelConfig, batch: int, cache_len: int,
@@ -63,9 +68,12 @@ def layer_cache_init(spec, cfg: ModelConfig, batch: int, cache_len: int,
                      page_size: int = 16, num_blocks: int = 0, lead=(),
                      device=None) -> dict:
     """Dense per-slot KV cache, or (``paged=True``) a block pool of
-    ``num_blocks`` pages shared through the block table.  RWKV state is
-    per slot either way (a recurrent carry has no sequence axis to page)."""
+    ``num_blocks`` pages shared through the block table.  Mamba and RWKV
+    state is per slot either way (a recurrent carry has no sequence axis
+    to page)."""
     _check_layer(spec)
+    if spec.mixer == MAMBA:
+        return ssm.mamba_cache_init(batch, cfg, dtype, lead, device)
     if spec.mixer == RWKV:
         return ssm.rwkv_cache_init(batch, cfg, dtype, lead, device)
     if paged:
@@ -84,17 +92,19 @@ def layer_apply(lp: dict, spec, cfg: ModelConfig, x: torch.Tensor,
 
     ``masked_slots``: rows whose positions are all < 0 (idle serving
     slots) keep their cache bit for bit — attention caches entry-wise
-    through the masked cache write, RWKV state and shift row-wise (they
+    through the masked cache write, Mamba and RWKV state row-wise (they
     ran the scan on padding).  ``use_kernel``: paged single-token decode
-    attention runs the paged-decode kernel; the RWKV recurrence runs the
-    ``rwkv_scan`` kernel at every S."""
+    attention runs the paged-decode kernel; the Mamba and RWKV
+    recurrences run the ``mamba_scan`` / ``rwkv_scan`` kernels at every
+    S.  MoE FFNs return their load-balance loss as ``aux_loss``."""
     _check_layer(spec)
     h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
-    if spec.mixer == RWKV:
+    if spec.mixer in (MAMBA, RWKV):
         valid = ((positions >= 0).any(dim=1)
                  if masked_slots and cache is not None else None)
-        h, cache = ssm.rwkv_apply(lp["mixer"], h, cfg, cache=cache,
-                                  valid=valid, use_kernel=use_kernel)
+        apply = ssm.mamba_apply if spec.mixer == MAMBA else ssm.rwkv_apply
+        h, cache = apply(lp["mixer"], h, cfg, cache=cache, valid=valid,
+                         use_kernel=use_kernel)
     else:
         h, cache = attn_apply(lp["mixer"], h, cfg, positions=positions,
                               cache=cache, kv_chunk=kv_chunk,
@@ -102,8 +112,12 @@ def layer_apply(lp: dict, spec, cfg: ModelConfig, x: torch.Tensor,
                               use_kernel=use_kernel)
     x = x + h
     h = rmsnorm(x, lp["norm2"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + ffn_apply(lp["ffn"], h), cache, aux
+    if spec.ffn == MOE:
+        h, aux = moe_apply(lp["ffn"], h, cfg)
+    else:
+        h = ffn_apply(lp["ffn"], h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + h, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +235,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     to arange(S) per row.  ``block_table`` marks ``caches`` as paged
     pools; ``use_kernel=True`` runs each mixer's Hopper kernel where the
     port has one (paged single-token decode attention, self-attention
-    with no cache, the RWKV recurrence).  ``remat`` recomputes each
+    with no cache, the Mamba and RWKV recurrences).  ``remat`` recomputes each
     period's activations in the backward pass (see ``_remat_wrap``)."""
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape

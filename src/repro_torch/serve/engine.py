@@ -1,7 +1,8 @@
 """Serving engine of the port: chunked-prefill continuous batching over a
 dense or paged (block-table) KV cache, with content-addressed prefix
 sharing and copy-on-write pages — the counterpart of
-``repro.serve.engine`` for full-attention and RWKV6 models.
+``repro.serve.engine`` for full-attention, RWKV6 and Mamba-hybrid
+models, with dense or MoE FFNs.
 
 One step function (``make_engine_step``) serves both chunked prefill
 (S = chunk) and the batched decode tick (S = 1).  Only the last position
@@ -99,7 +100,8 @@ def make_engine_step(cfg: ModelConfig, *, kv_chunk: int = 1024,
     branches are decided on the host without a device sync.  Rows with
     position -1 are cache no-ops.  ``caches`` and ``seen`` are updated in
     place.  ``use_kernel=True`` runs each mixer's Hopper kernel where the
-    port has one: paged S=1 decode attention and the RWKV recurrence."""
+    port has one: paged S=1 decode attention and the Mamba and RWKV
+    recurrences."""
     def engine_step(params, caches, seen, tokens, positions, table,
                     rng_keys, temperature, top_p, top_k, rep_penalty):
         B = tokens.shape[0]
@@ -283,7 +285,7 @@ def _cache_leaves(caches):
 
 def _clear_slot(caches, s: int, skip_pools: bool = False):
     """Zero slot ``s`` in every per-slot cache leaf (positions to -1;
-    RWKV ``state`` and ``shift`` to 0), in place.  ``skip_pools=True``
+    Mamba ``h`` / ``conv`` and RWKV ``state`` / ``shift`` to 0), in place.  ``skip_pools=True``
     (paged engines) leaves block pools alone: they are indexed by block
     id, and recycled blocks are scrubbed by ``make_clear_blocks``
     instead."""
@@ -339,10 +341,13 @@ class ServingEngine:
     skipped) and copies a shared page before the first write into it.
     ``use_kernel=True`` (paged only) runs each mixer's Hopper kernel where
     the port has one: decode attention through the paged-decode kernel,
-    the RWKV recurrence (prefill and decode) through ``rwkv_scan``.  Both
-    compute what the plain path computes.  Attention-free models keep
-    their recurrent state per slot: they take no pool pages, share no
-    prefix, and admit prompts longer than ``cache_len``.  ``stats``
+    the Mamba and RWKV recurrences (prefill and decode) through
+    ``mamba_scan`` / ``rwkv_scan``.  Each computes what the plain path
+    computes.  Recurrent layers keep their state per slot; models with
+    them, or with MoE FFNs, share no prefix.  Attention-free models take
+    no pool pages and admit prompts longer than ``cache_len``; hybrids
+    (Mamba + attention) page their attention layers and are bounded by
+    ``cache_len``.  ``stats``
     carries the JAX engine's keys; the counters of features not ported
     yet stay 0.
 
@@ -375,12 +380,15 @@ class ServingEngine:
         self.use_kernel = use_kernel
         # only full-attention caches bound the context; prefix sharing
         # holds only where skipping a page's prefill leaves no other state
-        # stale, and a recurrent carry would still need the skipped tokens
+        # stale and changes no result: a recurrent carry would still need
+        # the skipped tokens, and MoE capacity truncation depends on the
+        # chunk's shape (a shorter tail routes and drops differently)
         specs = tuple(cfg.prefix_layers) + tuple(cfg.period)
         self._has_attn = any(sp.mixer == ATTN for sp in specs)
         self._has_recurrent = any(sp.mixer in (MAMBA, RWKV) for sp in specs)
         self._can_share = (paged and share_prefix and self._has_attn
-                           and not self._has_recurrent)
+                           and not self._has_recurrent
+                           and not cfg.n_experts)
         if paged:
             self.n_cols = max(1, -(-cache_len // page_size))
             self.num_blocks = (num_blocks if num_blocks is not None

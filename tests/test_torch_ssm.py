@@ -1,6 +1,7 @@
-"""The port's RWKV6 mixer (``repro_torch.models.ssm``) and its place in the
-decoder, against the JAX package on the ``rwkv6-7b`` smoke config with
-parameters carried across by ``convert.py``.
+"""The port's recurrent mixers (``repro_torch.models.ssm``) and their
+place in the decoder, against the JAX package with parameters carried
+across by ``convert.py``: RWKV6 on the ``rwkv6-7b`` smoke config, Mamba
+on the ``jamba-1.5-large-398b`` smoke config.
 
 Both packages round activations to bfloat16 after every op, but their
 matmuls sum in different orders, so outputs that leave a bfloat16
@@ -12,6 +13,15 @@ Across two layers the one-step differences grow (the decay
 ``exp(-exp(.))`` amplifies them), so whole-model logits are compared by
 their relative L2 error, within 5e-2 (2.1e-2 was the largest seen over
 three seeds).
+
+Mamba runs in float32 and in bfloat16 activations.  In float32 the two
+packages differ by summation order only: outputs, the state ``h`` and
+the conv history within 2e-5 of their scale.  In bfloat16 JAX rounds
+inside its elementwise functions (softplus, SiLU are several bfloat16
+ops there, one rounding in PyTorch), so ``dt`` and the gates differ by
+a bfloat16 step here and there: outputs and ``h`` within 2e-2 of their
+scale (1.4e-2 and 1.1e-2 seen).  The conv history is a copy of a
+bfloat16 matmul's output: within 2e-2 too.
 """
 from dataclasses import asdict
 
@@ -176,9 +186,135 @@ def test_chunked_scan_runs_exactly_length_steps():
         assert float(h) == L and ys.shape[0] == L
 
 
-def test_mamba_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Mamba"):
-        TS.mamba_apply({}, torch.zeros(1, 1, 4), None)
+JAMBA = "jamba-1.5-large-398b"
+MAMBA_DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+@pytest.fixture(scope="module")
+def jamba():
+    cfg = jax_smoke(JAMBA)
+    jp = JT.init_params(jax.random.PRNGKey(0), cfg)
+    tp = params_from_jax(_np(jp), "cpu")
+    # period layer 1 is the first Mamba layer
+    return (cfg, jax.tree.map(lambda a: a[0], jp["stack"][1]["mixer"]),
+            TT._period(tp["stack"], 0)[1])
+
+
+@pytest.mark.parametrize("dtype", list(MAMBA_DTYPES))
+@pytest.mark.parametrize("history", [False, True])
+def test_causal_conv_matches_jax(jamba, history, dtype):
+    cfg, jl, tl = jamba
+    jdt, tdt, tol = MAMBA_DTYPES[dtype]
+    rng = np.random.RandomState(3)
+    di, K = cfg.mamba_d_inner, cfg.mamba_d_conv
+    x = rng.randn(2, 5, di).astype(np.float32)
+    prev = rng.randn(2, K - 1, di).astype(np.float32) if history else None
+    jy, jh = JS._causal_conv(jnp.asarray(x, jdt), jl["conv_w"], jl["conv_b"],
+                             None if prev is None else jnp.asarray(prev, jdt))
+    ty, th = TS._causal_conv(torch.from_numpy(x).to(tdt),
+                             tl["mixer"]["conv_w"], tl["mixer"]["conv_b"],
+                             None if prev is None
+                             else torch.from_numpy(prev).to(tdt))
+    assert ty.dtype == tdt and th.shape == (2, K - 1, di)
+    _close_at_scale(ty, jy, tol)
+    np.testing.assert_array_equal(th.float().numpy(),
+                                  np.asarray(jh, np.float32))
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("dtype", list(MAMBA_DTYPES))
+def test_mamba_apply_matches_jax(jamba, dtype, use_kernel):
+    """No cache (S = 11); then from a zero cache a prefill of 11 tokens
+    and one decode step (S = 1), the cache's ``h`` and ``conv`` compared
+    after each."""
+    cfg, jl, tl = jamba
+    jdt, tdt, tol = MAMBA_DTYPES[dtype]
+    rng = np.random.RandomState(1)
+    x = rng.randn(2, 11, cfg.d_model).astype(np.float32)
+    jo, _ = JS.mamba_apply(jl, jnp.asarray(x, jdt), cfg)
+    to, none = TS.mamba_apply(tl["mixer"], torch.from_numpy(x).to(tdt), cfg,
+                              use_kernel=use_kernel)
+    assert none is None and to.dtype == tdt and to.shape == x.shape
+    _close_at_scale(to, jo, tol)
+    jc = JS.mamba_cache_init(2, cfg, dtype=jdt)
+    tc = caches_from_jax(_np(jc), "cpu")
+    for S in (11, 1):
+        x = rng.randn(2, S, cfg.d_model).astype(np.float32)
+        jo, jc = JS.mamba_apply(jl, jnp.asarray(x, jdt), cfg, cache=jc)
+        to, tnc = TS.mamba_apply(tl["mixer"], torch.from_numpy(x).to(tdt),
+                                 cfg, cache=tc, use_kernel=use_kernel)
+        assert tnc is tc                                 # written in place
+        _close_at_scale(to, jo, tol)
+        _close_at_scale(tc["h"], jc["h"], tol)
+        _close_at_scale(tc["conv"], jc["conv"], tol)
+
+
+def test_mamba_kernel_path_equals_the_plain_scan(jamba):
+    """``use_kernel=True`` on CPU tensors runs ``ops.mamba_scan``'s plain
+    version, the plain path's scan, writing the state through
+    ``state_out``: output and cache bit for bit equal to the plain path,
+    prefill and decode."""
+    cfg, _, tl = jamba
+    rng = np.random.RandomState(5)
+    caches = [TS.mamba_cache_init(2, cfg, device="cpu") for _ in range(2)]
+    for c in caches:
+        c["h"].copy_(torch.from_numpy(rng.randn(*c["h"].shape)
+                                      .astype(np.float32)))
+    caches[1]["h"].copy_(caches[0]["h"])
+    for S in (7, 1):
+        x = torch.from_numpy(rng.randn(2, S, cfg.d_model).astype(np.float32)
+                             ).to(torch.bfloat16)
+        outs = [TS.mamba_apply(tl["mixer"], x, cfg, cache=c,
+                               use_kernel=k)[0]
+                for c, k in zip(caches, (False, True))]
+        assert torch.equal(*outs)
+        for name in ("h", "conv"):
+            assert torch.equal(caches[0][name], caches[1][name])
+
+
+def test_mamba_cache_init_shapes():
+    cfg = get_config(JAMBA)
+    c = TS.mamba_cache_init(8, cfg, lead=(9,), device="cpu")
+    assert c["h"].shape == (9, 8, 16384, 16) and c["h"].dtype == torch.float32
+    assert c["conv"].shape == (9, 8, 3, 16384)
+    assert c["conv"].dtype == torch.bfloat16
+    caches = TT.init_cache(jax_smoke(JAMBA), 3, 16, paged=True, page_size=8,
+                           device="cpu")
+    attn, *mamba = caches["stack"]
+    assert set(attn) == {"k", "v", "pos"} and attn["pos"].shape == (1, 6, 8)
+    for layer in mamba:                                  # per slot, unpaged
+        assert set(layer) == {"h", "conv"}
+        assert layer["h"].shape == (1, 3, 512, 8)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_mamba_masked_slot_restore_is_bitwise(jamba, use_kernel):
+    """``layer_apply(masked_slots=True)`` on a Mamba + MoE layer: a row
+    whose positions are all -1 keeps ``h`` and ``conv`` bit for bit; the
+    live row's cache ends as it does when run alone (the MoE FFN after
+    the mixer does not touch the cache)."""
+    cfg, _, lp = jamba
+    spec = cfg.period[1]
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.randn(2, 5, cfg.d_model).astype(np.float32)
+                         ).to(torch.bfloat16)
+    cache = TS.mamba_cache_init(2, cfg, device="cpu")
+    for leaf in cache.values():
+        leaf.copy_(torch.from_numpy(rng.randn(*leaf.shape)
+                                    .astype(np.float32)))
+    before = {k: v.clone() for k, v in cache.items()}
+    pos = torch.tensor([[7, 8, 9, 10, 11], [-1] * 5], dtype=torch.int32)
+    TT.layer_apply(lp, spec, cfg, x, pos, cache, masked_slots=True,
+                   use_kernel=use_kernel)
+    for k in ("h", "conv"):
+        assert torch.equal(cache[k][1], before[k][1])
+        assert not torch.equal(cache[k][0], before[k][0])
+    alone = {k: v[:1].clone() for k, v in before.items()}
+    TT.layer_apply(lp, spec, cfg, x[:1], pos[:1], alone, masked_slots=True,
+                   use_kernel=use_kernel)
+    for k in ("h", "conv"):
+        assert torch.equal(cache[k][:1], alone[k])
 
 
 def test_forward_prefill_then_decode_matches_jax(model):

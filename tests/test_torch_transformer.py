@@ -1,7 +1,8 @@
 """The port's decoder (``repro_torch.models.transformer``) against the JAX
-package's ``forward`` with converted parameters, on the gpt3-24l and
-qwen3-8b smoke configs, plus invariants that hold inside the port bit
-for bit (paged == dense, no aliasing between periods).
+package's ``forward`` with converted parameters, on the gpt3-24l,
+qwen3-8b and jamba-1.5-large-398b (Mamba + attention + MoE) smoke
+configs, plus invariants that hold inside the port bit for bit (paged ==
+dense, no aliasing between periods).
 
 Logits and cached keys / values come out of bfloat16 matmuls (logits are
 cast to float32 only after the product, as in the JAX version), and the
@@ -9,6 +10,18 @@ two frameworks round their inputs at different places, so every element
 carries bfloat16 rounding at the scale of the largest one: they are
 compared with the bfloat16 tolerance 2e-2 relative to that scale.
 Cached positions are compared exactly.
+
+Jamba routes each token to its top-2 experts, a discrete choice: in
+bfloat16 activations one rounding difference can swap a token's second
+expert (on this smoke model a router margin of 3.6e-3 flips in the last
+MoE layer) and move its output by a whole expert's contribution, so the
+logits differ by 18% of their scale although every layer agrees within
+1% on the same input.  Its whole-model comparison therefore runs in
+float32 activations (the embedding upcast in both packages, bfloat16
+weights upcast exactly in each matmul, float32 caches), where the two
+differ by summation order only: within 2e-5 of the scale (1.4e-6
+seen).  Per-layer bfloat16 parity of its Mamba and MoE layers is in
+``test_torch_ssm.py`` and ``test_torch_moe.py``.
 """
 import copy
 from dataclasses import asdict, replace
@@ -29,25 +42,28 @@ from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.convert import caches_from_jax, params_from_jax  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 
-ARCHS = ["gpt3-24l", "qwen3-8b"]
+ARCHS = ["gpt3-24l", "qwen3-8b", "jamba-1.5-large-398b"]
 
 
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _close_at_scale(t, j):
+def _close_at_scale(t, j, tol=2e-2):
     j = np.asarray(j, np.float32)
     scale = max(1.0, float(np.abs(j).max()))
-    np.testing.assert_allclose(t.float().numpy(), j, atol=2e-2 * scale,
+    np.testing.assert_allclose(t.float().numpy(), j, atol=tol * scale,
                                rtol=0)
 
 
-def _caches_close(tc, jc):
+def _caches_close(tc, jc, tol=2e-2):
     for tl, jl in zip(tc["stack"], jc["stack"]):
-        np.testing.assert_array_equal(tl["pos"].numpy(), np.asarray(jl["pos"]))
-        _close_at_scale(tl["k"], jl["k"])
-        _close_at_scale(tl["v"], jl["v"])
+        assert tl.keys() == jl.keys()
+        if "pos" in tl:
+            np.testing.assert_array_equal(tl["pos"].numpy(),
+                                          np.asarray(jl["pos"]))
+        for name in set(tl) - {"pos"}:
+            _close_at_scale(tl[name], jl[name], tol)
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -68,26 +84,32 @@ def test_smoke_and_full_configs_equal_the_jax_ones():
 
 def test_forward_prefill_then_decode_matches_jax(model):
     """Prefill 11 tokens into a dense cache, then decode one: logits and
-    caches against the JAX forward on the same converted parameters."""
+    caches against the JAX forward on the same converted parameters (an
+    MoE model in float32 activations, see above)."""
     cfg, jp, tp = model
+    tol, cache_dtype = 2e-2, jnp.bfloat16
+    if cfg.n_experts:
+        tol, cache_dtype = 2e-5, jnp.float32
+        jp = dict(jp, embed=jp["embed"].astype(jnp.float32))
+        tp = dict(tp, embed=tp["embed"].float())
     toks = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 11))
     toks = toks.astype(np.int32)
-    jc = JT.init_cache(cfg, 2, 16)
+    jc = JT.init_cache(cfg, 2, 16, dtype=cache_dtype)
     tc = caches_from_jax(_np(jc), "cpu")
     jl, _, jc = JT.forward(jp, cfg, {"tokens": jnp.asarray(toks)}, caches=jc)
     tl, _, tc = TT.forward(tp, cfg, {"tokens": torch.from_numpy(toks)},
                            caches=tc)
     assert tl.dtype == torch.float32 and tl.shape == (2, 11, cfg.vocab_size)
-    _close_at_scale(tl, jl)
-    _caches_close(tc, jc)
+    _close_at_scale(tl, jl, tol)
+    _caches_close(tc, jc, tol)
     nxt = np.asarray(jl)[:, -1].argmax(-1).astype(np.int32)[:, None]
     pos = np.full((2, 1), 11, np.int32)
     jl, _, jc = JT.forward(jp, cfg, {"tokens": jnp.asarray(nxt)}, caches=jc,
                            positions=jnp.asarray(pos), decode=True)
     tl, _, tc = TT.forward(tp, cfg, {"tokens": torch.from_numpy(nxt)},
                            caches=tc, positions=torch.from_numpy(pos))
-    _close_at_scale(tl, jl)
-    _caches_close(tc, jc)
+    _close_at_scale(tl, jl, tol)
+    _caches_close(tc, jc, tol)
 
 
 def test_paged_forward_equals_dense_bitwise(model):
@@ -156,10 +178,11 @@ def test_transformer_module_owns_params_under_jax_keys(model):
                                atol=0, rtol=0)
 
 
-def test_entry_points_raise_without_gpu_or_explicit_cpu():
+@pytest.mark.parametrize("arch", ["qwen3-8b", "jamba-1.5-large-398b"])
+def test_entry_points_raise_without_gpu_or_explicit_cpu(arch):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid")
-    cfg = get_smoke_config("qwen3-8b")
+    cfg = get_smoke_config(arch)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TT.init_params(0, cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):

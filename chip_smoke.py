@@ -99,15 +99,48 @@ failure:
    rounding floor).  Prints step ms, tokens/s, MFU and peak memory;
 13. time the flash kernel at the training shape beside its bound, its
    plain version and ``F.scaled_dot_product_attention`` (a yardstick
-   only; the port never calls it).
+   only; the port never calls it);
+14. hold the int8 block quantization kernels (``int8_quantize`` /
+   ``int8_dequantize``) against their plain versions: the sweep of
+   ``tests/test_kernels.py`` (n 17..4096, f32 and bf16, block 256 and
+   128), an odd block, an unaligned input and a NaN row: codes, scales
+   and the decoded values (f32 and bf16) bit for bit.  After phase 15,
+   one run over the plane's whole gradient size (2.788 B bf16 elements,
+   more than 2^31): every row against the plain version in chunks, the
+   rows around element 2^31 and the last rows against the plain version
+   on those rows alone, a partial last row; then kernel, plain and
+   ``torch.mul(codes, scales)`` times beside the bytes bounds;
+15. the paper's decentralized plane at full width, the steps of
+   ``examples/decentralized_pipeline.py``: a ``Broker`` (backup pool
+   0.25) takes a fleet of 8 consumer GPUs and schedules the train DAG of
+   qwen3-8b (8 of 36 layers, 2.788 B parameters, B=2, S=4096) in 4
+   parts; batches come from ``SyntheticLM`` through a ``DataProvider``
+   on the broker's DHT; a ``LocalCluster`` of 4 compnodes
+   (``use_kernel=True``) and one of 1 compnode drawn from the same seed
+   give the same ``forward`` logits and two steps' losses bit for bit.
+   Then the main path: 4 SGD steps of the 4-part cluster over the Bus,
+   the last driven through the executors' own fp / bp with a recording
+   Bus, every payload and the whole gradient (one bf16 vector) through
+   ``int8_block_encode`` / ``decode``: flash launches == 8 x 4, int8
+   launches == payloads + 1, finite losses, each of the cluster's six
+   (two equality steps, then these four) below the one before,
+   Bus bytes within [1.8, 4] x the DAG's cut model; each payload, each
+   gradient leaf and the whole gradient coded by the kernels equal the
+   plain versions bit for bit.  Prints step ms, tokens/s, peak memory,
+   Bus bytes per link and each compnode's FP / BP ms beside the paper's
+   Eq. 1 estimate for an h100 ``CompNode``.
 
 The phases run in the order 1-2, 5, 11 (the kernel checks), 3-4, 6-7,
-8-10, 12-13; each model is freed before the next is drawn.
+8-10, 12-13, 14 (the sweep), 15, 14 (the large run and times); each
+model is freed before the next is drawn.
 
 Output: human-readable lines, then one JSON line ``{"kernels": [...]}``,
 the card's name and power limit from nvidia-smi, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's sources, it exits nonzero and prints no result.
+
+``python3 chip_smoke.py --plane-lr-sweep`` builds the kernels and runs
+only the SGD learning-rate sweep of phase 15's cluster (``plane_lr_sweep``).
 """
 from __future__ import annotations
 
@@ -1706,6 +1739,499 @@ def phase_train(fwd, kernels):
     return launches, timing, step0
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the int8 kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+INT8_SWEEP = [17, 256, 1000, 4096]     # tests/test_kernels.py:37-48
+INT8_BLOCK = 256
+INT8_ENCODE_OPS = 6                    # abs, max, divide, rint, 2 clamps
+INT8_CHUNK_ROWS = 1 << 20              # rows per plain-version chunk
+
+
+def same_bits(a, b) -> bool:
+    """Equal shape, dtype and values; NaN where the other has NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(a.nan_to_num(), b.nan_to_num()))
+
+
+def int8_check(qfwd, dqfwd, x, block, what):
+    """Kernel against plain on one input: codes, scales and the decoded
+    values in float32 and bf16, bit for bit."""
+    from repro_torch.kernels.ref import int8_dequantize_ref, int8_quantize_ref
+    q, s = qfwd(x, block=block)
+    torch.cuda.synchronize()
+    eq, es = int8_quantize_ref(x, block)
+    if not (same_bits(q, eq) and same_bits(s, es)):
+        bad_s = (s.nan_to_num() != es.nan_to_num())[:, 0]
+        bad_q = (q != eq).any(dim=1)
+        fail(f"int8_quantize {what}: of {q.shape[0]} rows, {int(bad_s.sum())} "
+             f"scales and {int(bad_q.sum())} code rows differ from the plain "
+             f"version (max scale difference "
+             f"{(s - es).abs().max().item():.3e})")
+    for dt in (torch.float32, torch.bfloat16):
+        out = dqfwd(q, s, tuple(x.shape), dt)
+        torch.cuda.synchronize()
+        if not same_bits(out, int8_dequantize_ref(eq, es, tuple(x.shape), dt)):
+            fail(f"int8_dequantize {what} -> {dt}: differs from the plain "
+                 f"version")
+    return q, s
+
+
+def phase_int8_vs_plain(qfwd, dqfwd):
+    """The sweep of tests/test_kernels.py (n 17..4096, f32 and bf16,
+    block 256 and 128), plus an odd block and an unaligned input (the
+    scalar paths) and a row holding a NaN: codes, scales and decoded
+    values bit for bit."""
+    n_cases = 0
+    for n in INT8_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            for block in (INT8_BLOCK, 128):
+                g = torch.Generator().manual_seed(n)
+                x = (torch.randn(n, generator=g) * 5).to(dtype).cuda()
+                int8_check(qfwd, dqfwd, x, block, f"n={n} {dtype} block={block}")
+                n_cases += 1
+    g = torch.Generator().manual_seed(1)
+    base = (torch.randn(4097, generator=g) * 5).cuda()
+    int8_check(qfwd, dqfwd, base.reshape(17, 241), 100, "block 100")
+    int8_check(qfwd, dqfwd, base[1:], INT8_BLOCK, "unaligned input")
+    nan = base.clone()
+    nan[300] = float("nan")
+    q, s = int8_check(qfwd, dqfwd, nan, INT8_BLOCK, "a NaN row")
+    if not (torch.isnan(s[1, 0]) and (q[1] == 0).all()
+            and not torch.isnan(s[[0, 2]]).any()):
+        fail("int8_quantize: a NaN must make its row's scale NaN and codes 0")
+    print(f"int8 kernels vs plain: {n_cases} cases of the test_kernels.py "
+          f"sweep plus block 100, an unaligned input and a NaN row: codes, "
+          f"scales and f32 / bf16 decode bit for bit")
+
+
+def int8_bounds(n, block, in_bytes, out_bytes):
+    """(encode, decode) least times in ms and what bounds each: each input
+    read once, each output written once; encode's few float32 operations
+    per element at the f32 rate."""
+    rows = -(-n // block)
+    enc_b = n * in_bytes + rows * block + rows * 4
+    dec_b = rows * block + rows * 4 + n * out_bytes
+    out = []
+    for byts, ops in ((enc_b, INT8_ENCODE_OPS * n), (dec_b, n)):
+        t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+        out.append((max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
+                    byts))
+    return out
+
+
+def phase_int8_times(qfwd, dqfwd, n):
+    """One run over n > 2^31 elements (the decentralized step's whole
+    gradient, bf16): every row's codes and scales and every decoded value
+    against the plain version run chunk by chunk, the rows around element
+    2^31 and the last rows against the plain version on those rows
+    alone, and a prefix of n - 77 elements (a partial last row).  Then
+    kernel, plain and ``torch.mul`` times at that size."""
+    from repro_torch.kernels.ref import int8_dequantize_ref, int8_quantize_ref
+    if n <= 2 ** 31:
+        fail(f"the large int8 run needs more than 2^31 elements, not {n}")
+    blk = INT8_BLOCK
+    g = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.randn(n, generator=g, dtype=torch.bfloat16, device="cuda")
+    q, s = qfwd(x)
+    dec = dqfwd(q, s, (n,))
+    torch.cuda.synchronize()
+    rows = q.shape[0]
+    q_err = dq_err = 0.0     # codes and scales; decoded values
+    for r0 in range(0, rows, INT8_CHUNK_ROWS):
+        r1 = min(rows, r0 + INT8_CHUNK_ROWS)
+        eq, es = int8_quantize_ref(x[r0 * blk:min(n, r1 * blk)], blk)
+        ed = int8_dequantize_ref(eq, es, (min(n, r1 * blk) - r0 * blk,))
+        q_err = max(q_err, (q[r0:r1].float() - eq.float()).abs().max().item(),
+                    (s[r0:r1] - es).abs().max().item())
+        dq_err = max(dq_err, (dec[r0 * blk:r1 * blk] - ed).abs().max().item())
+        if not (same_bits(q[r0:r1], eq) and same_bits(s[r0:r1], es)
+                and same_bits(dec[r0 * blk:r1 * blk], ed)):
+            fail(f"int8 kernels over {n} elements: rows {r0}..{r1} differ "
+                 f"from the plain version")
+    del eq, es, ed
+    edge = 2 ** 31 // blk
+    windows = {"around element 2^31": (edge - 4, edge + 4),
+               "last": (rows - 8, rows)}
+    for name, (r0, r1) in windows.items():
+        eq, es = int8_quantize_ref(x[r0 * blk:r1 * blk].clone(), blk)
+        if not (same_bits(q[r0:r1], eq) and same_bits(s[r0:r1], es)):
+            fail(f"int8_quantize over {n} elements: the {name} rows differ "
+                 f"from the plain version on those rows alone")
+    del dec
+    m = n - 77
+    qp, sp = qfwd(x[:m])
+    dp = dqfwd(qp, sp, (m,), torch.bfloat16)
+    r0 = qp.shape[0] - 4
+    tq, ts = int8_quantize_ref(x[r0 * blk:m].clone(), blk)
+    if not (same_bits(qp[r0:], tq) and same_bits(sp[r0:], ts)
+            and same_bits(qp[:r0], q[:r0])
+            and same_bits(dp[r0 * blk:], int8_dequantize_ref(
+                tq, ts, (m - r0 * blk,), torch.bfloat16))):
+        fail(f"int8 kernels over a partial last row ({m} elements) differ "
+             f"from the plain version")
+    del qp, sp, dp
+    print(f"int8 kernels over {n} elements (> 2^31, bf16): every row and "
+          f"decoded value equal to the plain version in chunks of "
+          f"{INT8_CHUNK_ROWS} rows (largest difference: codes and scales "
+          f"{q_err}, decoded values {dq_err}); rows around element 2^31, "
+          f"the last rows and a partial last row ({m} elements) equal on "
+          f"their own")
+    torch.cuda.empty_cache()
+
+    for _ in range(2):
+        qfwd(x)
+    q_ms = event_ms(lambda i: qfwd(x), 5)
+    dq_ms = event_ms(lambda i: dqfwd(q, s, (n,)), 5)
+    torch.cuda.empty_cache()
+    q_plain = event_ms(lambda i: int8_quantize_ref(x, blk), 2)
+    torch.cuda.empty_cache()
+    dq_plain = event_ms(lambda i: int8_dequantize_ref(q, s, (n,)), 2)
+    torch.cuda.empty_cache()
+    lib = torch.mul(q, s)              # int8 x f32 promotes to f32: one call
+    if not torch.equal(lib.reshape(-1)[:n], dqfwd(q, s, (n,))):
+        fail("torch.mul(codes, scales) does not compute int8_dequantize")
+    del lib
+    torch.cuda.empty_cache()
+    dq_lib = event_ms(lambda i: torch.mul(q, s), 3)
+    (qb, qby, qbytes), (db, dby, dbytes) = int8_bounds(n, blk, 2, 4)
+    print(f"int8_quantize over {n} bf16 elements: kernel {q_ms * 1e3:.1f} us, "
+          f"bound {qb * 1e3:.1f} us ({qby}: {qbytes / 1e9:.3f} GB), plain "
+          f"{q_plain * 1e3:.1f} us, library none")
+    print(f"int8_dequantize to {n} f32 elements: kernel {dq_ms * 1e3:.1f} us, "
+          f"bound {db * 1e3:.1f} us ({dby}: {dbytes / 1e9:.3f} GB), plain "
+          f"{dq_plain * 1e3:.1f} us, torch.mul {dq_lib * 1e3:.1f} us")
+    del x, q, s
+    torch.cuda.empty_cache()
+    return ({"ms": q_ms, "plain_ms": q_plain, "bound_ms": qb, "bound_by": qby,
+             "library_ms": None, "max_abs_err": q_err, "n": n},
+            {"ms": dq_ms, "plain_ms": dq_plain, "bound_ms": db,
+             "bound_by": dby, "library_ms": dq_lib, "max_abs_err": dq_err,
+             "n": n})
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the decentralized plane (broker, DAG, executor over the Bus)
+# ---------------------------------------------------------------------------
+
+PLANE_LAYERS = 8                 # of 36, as phase 12: 2.788 B parameters
+PLANE_B, PLANE_S = 2, 4096
+PLANE_PARTS = 4
+PLANE_STEPS = 4                  # 3 train_step calls + 1 step driven by hand
+PLANE_LR = 1e-3                  # plain SGD: the loss falls at every step
+                                 # (--plane-lr-sweep; PERF.md §6)
+PLANE_FLEET = [("rtx3080", 4), ("rtx4090", 2), ("rtx4080", 2)]
+PLANE_LR_SWEEP = (0.001, 0.003, 0.01, 0.03, 0.1, 0.3, 1.0)
+
+
+def plane_lm(cfg):
+    """Phase 15's batches: SyntheticLM at the plane's shape, on the card."""
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    return SyntheticLM(SyntheticConfig(cfg.vocab_size, PLANE_S, PLANE_B,
+                                       noise=0.05, seed=0), device="cuda")
+
+
+def run_plane(cfg, lr, kernels):
+    """The steps of examples/decentralized_pipeline.py for ``cfg`` on the
+    card, at batch PLANE_B x PLANE_S.  A broker schedules the train DAG
+    over a consumer fleet; batches come from SyntheticLM through a
+    DataProvider on the broker's DHT.  A LocalCluster of PLANE_PARTS
+    compnodes (flash attention on) and one of a single compnode, from the
+    same seed, must agree bit for bit: ``forward`` logits, then two
+    steps' losses.  Then the main path, with every counter in ``kernels``
+    set to 0 first: PLANE_STEPS steps of the 4-part cluster, the last
+    driven through the executors' own fp / bp with a recording Bus, every
+    floating payload and the whole gradient (one bf16 vector) through
+    int8_block_encode / decode, then the update.  The counters are read
+    right after.  Then each payload, each gradient
+    leaf and the whole gradient are held against the plain int8 versions.
+    Returns the readings."""
+    from repro_torch.core.broker import Broker
+    from repro_torch.core.compression import (CompressionSpec,
+                                              int8_block_decode,
+                                              int8_block_encode)
+    from repro_torch.core.dag import PLACEHOLDER, build_model_dag
+    from repro_torch.core.decomposer import decompose_contiguous
+    from repro_torch.core.executor import Bus, LocalCluster
+    from repro_torch.core.perfmodel import (DEVICE_CATALOG, LINK_REGIMES,
+                                            CompNode, PerfModel, make_fleet)
+    from repro_torch.data.synthetic import DataProvider
+    from repro_torch.kernels.ref import int8_dequantize_ref, int8_quantize_ref
+    from repro_torch.tree import leaves
+
+    sync = torch.cuda.synchronize
+
+    def stamp():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def ms(a, b):
+        return a.elapsed_time(b)
+
+    B, S = PLANE_B, PLANE_S
+    out = {}
+    dag = build_model_dag(cfg, batch=B, seq=S, kind="train")
+    broker = Broker(backup_fraction=0.25, seed=0)
+    for node in make_fleet(PLANE_FLEET, LINK_REGIMES["wan_1gbps"]):
+        node.reliability = 0.98
+        broker.register(node)
+    sched = broker.submit_job(dag, n_parts=PLANE_PARTS)
+    print(f"broker: {len(broker.active)} active + {len(broker.backup)} backup "
+          f"compnodes; {len(dag)} ops, {dag.total_flops() / 1e12:.2f} TFLOP "
+          f"forward; schedule over the fleet: makespan "
+          f"{sched.makespan * 1e3:.1f} ms, feasible={sched.feasible}, "
+          f"task -> compnode {sorted(sched.assignment.items())}")
+    provider = DataProvider(plane_lm(cfg), broker.dht)
+    provider.publish(0, 1)
+    batch = provider.fetch(0)
+    toks, labels = batch["tokens"], batch["labels"]
+
+    parts = decompose_contiguous(dag, PLANE_PARTS)
+    t0 = time.time()
+    cluster = LocalCluster(dag, parts, cfg, 0, use_kernel=True)
+    mono = LocalCluster(dag, [dag.topo_order()], cfg, 0, use_kernel=True)
+    sync()
+    params = {n: p for ex in cluster.executors for n, p in ex.params.items()}
+    n_params = sum(t.numel() for t in leaves(params))
+    if not all(torch.equal(a, b) for a, b in zip(
+            leaves(params), leaves(mono.executors[0].params))):
+        fail("the 1-part and 4-part clusters drew different parameters")
+    print(f"clusters of {PLANE_PARTS} compnodes ({[len(p) for p in parts]} "
+          f"ops) and of 1, {n_params / 1e9:.3f} B parameters each, the same "
+          f"draws, in {time.time() - t0:.1f}s")
+    out["n_params"] = n_params
+
+    l4 = cluster.forward(toks)
+    l1 = mono.forward(toks)
+    sync()
+    if l4.shape != (B, S, cfg.vocab_size) or not torch.isfinite(l4).all():
+        fail(f"forward logits: shape {tuple(l4.shape)} or not finite")
+    if not torch.equal(l1, l4):
+        fail(f"forward logits of 1 and {PLANE_PARTS} compnodes differ by up "
+             f"to {(l1 - l4).abs().max().item()}")
+    del l1, l4
+    pairs = [(mono.train_step(toks, labels, lr),
+              cluster.train_step(toks, labels, lr)) for _ in range(2)]
+    if any(a != b for a, b in pairs):
+        fail(f"losses of 1 and {PLANE_PARTS} compnodes differ: {pairs}")
+    print(f"1 compnode vs {PLANE_PARTS}: forward logits bit for bit, the "
+          f"losses of two steps bit for bit: {[a for a, _ in pairs]}")
+    out["equal_losses"] = [a for a, _ in pairs]
+    del mono, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path ---------------------------------------------------
+    reset_counts(kernels)
+    sync()
+    losses, step_ms = [], []
+    for _ in range(PLANE_STEPS - 1):
+        cluster.bus = Bus()
+        a = stamp()
+        losses.append(cluster.train_step(toks, labels, lr))
+        b = stamp()
+        sync()
+        step_ms.append(ms(a, b))
+    link_bytes = dict(cluster.bus.bytes_sent)
+    class RecordingBus(Bus):
+        """Keeps every payload sent over it: (src, dst, key, tensor)."""
+
+        def __init__(self):
+            super().__init__()
+            self.payloads = []
+
+        def send(self, src, dst, key, value):
+            super().send(src, dst, key, value)
+            self.payloads.append((src, dst, key, value))
+
+    bus = cluster.bus = RecordingBus()
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=toks.device)[None].expand(B, S)
+    fp_ms, bp_ms, loss, grads = {}, {}, None, {}
+    for ex in cluster.executors:
+        ph = {n: {"input": toks, "label": labels}[n] for n in ex.op_names
+              if dag[n].op_type == PLACEHOLDER}
+        a = stamp()
+        l, _ = ex.fp(bus, cluster.assignment, ph, positions)
+        b = stamp()
+        fp_ms[ex.compnode_id] = (a, b)
+        loss = l if l is not None else loss
+    for ex in reversed(cluster.executors):
+        a = stamp()
+        grads[ex.compnode_id] = ex.bp(bus, cluster.assignment)
+        b = stamp()
+        bp_ms[ex.compnode_id] = (a, b)
+    losses.append(float(loss))
+    payloads = [(key, v) for _, _, key, v in bus.payloads
+                if v.is_floating_point() and v.numel()]
+    coded = [(key, v) + int8_block_encode(v.contiguous())
+             for key, v in payloads]
+    decoded = [int8_block_decode(q, s, v.shape) for _, v, q, s in coded]
+    grad_leaves = [g for g in leaves(grads) if g is not None]
+    flat = torch.cat([g.reshape(-1).to(torch.bfloat16) for g in grad_leaves])
+    qg, sg = int8_block_encode(flat)
+    dg = int8_block_decode(qg, sg, flat.shape)
+    for ex in cluster.executors:
+        ex.update(grads[ex.compnode_id], lr)
+    sync()
+    out["launches"] = {k.__name__: k.launches for k in kernels}
+    # ---- end of the main path --------------------------------------------
+
+    fp_ms = {k: ms(*v) for k, v in fp_ms.items()}
+    bp_ms = {k: ms(*v) for k, v in bp_ms.items()}
+    out.update(losses=losses, step_ms=step_ms, link_bytes=link_bytes,
+               cut_bytes=dag.cut_bytes(cluster.assignment),
+               fp_ms=fp_ms, bp_ms=bp_ms, n_payloads=len(coded),
+               n_grad=flat.numel(),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    spec = CompressionSpec("int8")
+    for (key, v, q, s), d in zip(coded, decoded):
+        if q.shape[0] * INT8_BLOCK < v.numel() or d.shape != v.shape:
+            fail(f"payload {key}: coded shapes {tuple(q.shape)} / "
+                 f"{tuple(d.shape)} for {tuple(v.shape)}")
+        if v.numel() + 4 * s.numel() != spec.bytes(v.numel()):
+            fail(f"payload {key}: encoded bytes differ from CompressionSpec")
+        eq, es = int8_quantize_ref(v, INT8_BLOCK)
+        if not (same_bits(q, eq) and same_bits(s, es) and same_bits(
+                d, int8_dequantize_ref(eq, es, tuple(v.shape)))):
+            fail(f"payload {key}: the int8 kernels differ from the plain "
+                 f"versions")
+    if not (torch.isfinite(dg).all() and dg.shape == flat.shape):
+        fail("the decoded gradient is not finite or has the wrong shape")
+    if flat.numel() + 4 * sg.numel() != spec.bytes(flat.numel()):
+        fail("the coded gradient's bytes differ from CompressionSpec")
+    rows = qg.shape[0]
+    for r0 in range(0, rows, INT8_CHUNK_ROWS):
+        r1 = min(rows, r0 + INT8_CHUNK_ROWS)
+        eq, es = int8_quantize_ref(flat[r0 * INT8_BLOCK:r1 * INT8_BLOCK],
+                                   INT8_BLOCK)
+        if not (same_bits(qg[r0:r1], eq) and same_bits(sg[r0:r1], es)):
+            fail(f"the coded gradient's rows {r0}..{r1} differ from the "
+                 f"plain version")
+    del dg, decoded, coded, eq, es
+    for g in grad_leaves:
+        g = g.contiguous()
+        q, s = int8_block_encode(g)
+        eq, es = int8_quantize_ref(g, INT8_BLOCK)
+        if not (same_bits(q, eq) and same_bits(s, es)):
+            fail(f"a gradient leaf {tuple(g.shape)} {g.dtype}: the int8 "
+                 f"kernel differs from the plain version")
+        d = int8_block_decode(q, s, g.shape)
+        if not same_bits(d, int8_dequantize_ref(eq, es, tuple(g.shape))):
+            fail(f"a gradient leaf {tuple(g.shape)}: int8 decode differs "
+                 f"from the plain version")
+        del q, s, eq, es, d
+    out["largest_leaf"] = max(g.numel() for g in grad_leaves)
+    out["raw_grad_bytes"] = 2 * flat.numel()
+    out["coded_grad_bytes"] = spec.bytes(flat.numel())
+    out["payload_bytes"] = sum(v.numel() * v.element_size()
+                               for _, v in payloads)
+    out["coded_payload_bytes"] = sum(spec.bytes(v.numel())
+                                     for _, v in payloads)
+    del flat, qg, sg, grads, grad_leaves, payloads, bus
+    pm = PerfModel([CompNode(i, DEVICE_CATALOG["h100"], LINK_REGIMES["nvlink"])
+                    for i in range(PLANE_PARTS)])
+    out["eq1_fp_ms"] = {i: 1e3 * pm.subgraph_time(dag, part, i,
+                                                   cluster.assignment)[0]
+                        for i, part in enumerate(parts)}
+    del cluster
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def plane_config():
+    """qwen3-8b at full width with PLANE_LAYERS of its 36 layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen3-8b"), n_layers=PLANE_LAYERS)
+
+
+def plane_lr_sweep(steps=8):
+    """``chip_smoke.py --plane-lr-sweep``: phase 15's 4-compnode cluster
+    (its model, seed and batch) trained ``steps`` SGD steps from its first
+    weights at each lr of PLANE_LR_SWEEP.  Prints each loss curve and
+    checks nothing: it is how PLANE_LR was chosen (PERF.md §6)."""
+    from repro_torch.core.dag import build_model_dag
+    from repro_torch.core.decomposer import decompose_contiguous
+    from repro_torch.core.executor import LocalCluster
+    cfg = plane_config()
+    dag = build_model_dag(cfg, batch=PLANE_B, seq=PLANE_S, kind="train")
+    parts = decompose_contiguous(dag, PLANE_PARTS)
+    batch = plane_lm(cfg).batch(0)
+    curves = {}
+    for lr in PLANE_LR_SWEEP:
+        c = LocalCluster(dag, parts, cfg, 0, use_kernel=True)
+        curves[lr] = [c.train_step(batch["tokens"], batch["labels"], lr)
+                      for _ in range(steps)]
+        print(f"plane SGD lr {lr}: losses {curves[lr]}")
+        del c
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"plane_lr_sweep": {str(k): v
+                                         for k, v in curves.items()}}))
+
+
+def phase_plane(kernels, flash_fwd):
+    """qwen3-8b at full width, 8 of 36 layers, through the decentralized
+    plane on the card (``run_plane``): the checks on its readings."""
+    cfg = plane_config()
+    t0 = time.time()
+    r = run_plane(cfg, PLANE_LR, kernels)
+    wall = time.time() - t0
+    launches = r["launches"]
+    flash = launches[flash_fwd.__name__]
+    if flash != cfg.n_layers * PLANE_STEPS:
+        fail(f"flash launches {flash} != {cfg.n_layers} x {PLANE_STEPS} steps")
+    n_coded = r["n_payloads"] + 1
+    for name in ("int8_quantize_fwd", "int8_dequantize_fwd"):
+        if launches[name] != n_coded:
+            fail(f"{name} launches {launches[name]} != {r['n_payloads']} "
+                 f"payloads + 1 gradient")
+    losses = r["losses"]
+    if len(losses) != PLANE_STEPS or not all(np.isfinite(losses)):
+        fail(f"the plane's losses are not {PLANE_STEPS} finite values: {losses}")
+    curve = r["equal_losses"] + losses        # the cluster's six steps
+    if not all(b < a for a, b in zip(curve, curve[1:])):
+        fail(f"the plane's loss did not fall at every step: {curve}")
+    total = sum(r["link_bytes"].values())
+    cut = r["cut_bytes"]
+    if not 1.8 * cut <= total <= 4 * cut:
+        fail(f"Bus bytes {total} outside [1.8, 4] x the cut model {cut}")
+    step_ms = sum(r["step_ms"]) / len(r["step_ms"])
+    timing = {"step_ms": step_ms, "step_ms_all": r["step_ms"],
+              "tokens_per_s": PLANE_B * PLANE_S / step_ms * 1e3,
+              "peak_mem_gb": r["peak_mem_gb"], "wall_s": wall}
+    print(f"decentralized plane, qwen3-8b {PLANE_LAYERS} of 36 layers, "
+          f"{PLANE_PARTS} compnodes, B={PLANE_B} S={PLANE_S}, SGD lr "
+          f"{PLANE_LR}: losses {losses}; launches {launches}")
+    print("Bus bytes of one step per link (src, dst): "
+          + ", ".join(f"{k}: {v:.0f}" for k, v in sorted(r["link_bytes"].items()))
+          + f"; total {total:.0f} = {total / cut:.4f} x the cut model {cut:.0f}")
+    print(f"int8 coding of the hand-driven step: {r['n_payloads']} payloads, "
+          f"{r['payload_bytes']} B -> {r['coded_payload_bytes']:.0f} B; the "
+          f"gradient, {r['n_grad']} elements (largest leaf "
+          f"{r['largest_leaf']}), {r['raw_grad_bytes']} B bf16 -> "
+          f"{r['coded_grad_bytes']:.0f} B; kernels equal the plain versions "
+          f"on every payload, leaf and row")
+    for i in sorted(r["fp_ms"]):
+        est = r["eq1_fp_ms"][i]
+        print(f"compnode {i}: FP {r['fp_ms'][i]:.3f} ms, BP "
+              f"{r['bp_ms'][i]:.3f} ms (CUDA events); PerfModel.subgraph_time "
+              f"on an h100 CompNode (Eq. 1, 756 TFLOP/s x 0.75): FP "
+              f"{est:.3f} ms, FP+BP x3 {3 * est:.3f} ms")
+    print("plane: " + ", ".join(f"{k}={v}" for k, v in timing.items()))
+    r.update(timing)
+    return launches, r
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1719,11 +2245,13 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.mamba_scan import mamba_scan_fwd
     from repro_torch.kernels.paged_attention import paged_attention_fwd
+    from repro_torch.kernels.quantize import (int8_dequantize_fwd,
+                                              int8_quantize_fwd)
     from repro_torch.kernels.ref import (flash_attention_ref, mamba_scan_ref,
                                          paged_attention_ref, rwkv_scan_ref)
     from repro_torch.kernels.rwkv_scan import rwkv_scan_fwd
     kernels = (paged_attention_fwd, rwkv_scan_fwd, mamba_scan_fwd,
-               flash_attention_fwd)
+               flash_attention_fwd, int8_quantize_fwd, int8_dequantize_fwd)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1733,6 +2261,9 @@ def main() -> int:
     t0 = time.time()
     libs = build.build_all()
     print(f"build: {len(libs)} kernel source(s) in {time.time() - t0:.1f}s")
+    if sys.argv[1:] == ["--plane-lr-sweep"]:
+        plane_lr_sweep()
+        return 0
     for name, log in sorted(build.logs.items()):
         print(f"ptxas {name}: " + "; ".join(
             f"{inst} {regs} regs {spill} B spilled"
@@ -1767,6 +2298,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     fa_launches, _, _ = phase_train(flash_attention_fwd, kernels)
     fa_times = phase_flash_times(flash_attention_fwd, flash_attention_ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_int8_vs_plain(int8_quantize_fwd, int8_dequantize_fwd)
+    plane_launches, plane = phase_plane(kernels, flash_attention_fwd)
+    q_times, dq_times = phase_int8_times(int8_quantize_fwd,
+                                         int8_dequantize_fwd, plane["n_grad"])
 
     result = [
         # qwen3-8b's decode shape leads; jamba's (G = 8) follows with the
@@ -1801,6 +2338,16 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:76",
          "launches": fa_launches, **fa_times},
+        # the decentralized plane's whole gradient (2.788 B bf16 elements);
+        # launches: every payload and the gradient of its hand-driven step
+        {"name": "int8_quantize", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/quantize.cu",
+         "replaces": "src/repro/kernels/quantize.py:36",
+         "launches": plane_launches["int8_quantize_fwd"], **q_times},
+        {"name": "int8_dequantize", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/quantize.cu",
+         "replaces": "src/repro/kernels/quantize.py:63",
+         "launches": plane_launches["int8_dequantize_fwd"], **dq_times},
     ]
     print(json.dumps({"kernels": result}))
     print(card)

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.tree import leaves
 
 
 def tensor_from_numpy(a, device: torch.device) -> torch.Tensor:
@@ -49,3 +50,15 @@ def opt_state_from_jax(state, device: DeviceLike = None) -> dict:
     {"step", "master", "mu", "nu"} (8-bit moments as {"q", "s"} leaves)
     or ``sgd``'s {"step", "vel"}, structure and dtypes kept."""
     return _convert(state, resolve_device(device))
+
+
+def executor_params_from_jax(tree, device: DeviceLike = None) -> dict:
+    """A JAX ``SubDagExecutor``'s params ({op name: {"norm", "op"} or
+    {"embed"} / {"norm", "head"}}, numpy leaves) -> the port's executor
+    params: the same tree, floating leaves ready for autograd (leaves
+    that require grad), as ``repro_torch.core.executor`` keeps them."""
+    out = _convert(tree, resolve_device(device))
+    for t in leaves(out):
+        if t.is_floating_point():
+            t.requires_grad_(True)
+    return out

@@ -1,6 +1,6 @@
 """Deterministic synthetic data pipeline — the counterpart of
-``repro.data.synthetic`` (the DHT-backed ``DataProvider`` and
-``loader_for`` wait for the port of the decentralized plane).
+``repro.data.synthetic``, with the DHT-backed ``DataProvider`` of the
+decentralized plane (§3.9).
 
 Token streams come from a seeded Markov-ish process with learnable
 structure: each token is mostly a hash of the previous one, with a
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.core.dht import DHT
 
 
 def _hash_next(tokens: np.ndarray, vocab: int) -> np.ndarray:
@@ -79,3 +80,48 @@ class SyntheticLM:
     def iterate(self, n_steps: int, start: int = 0) -> Iterator[dict]:
         for step in range(start, start + n_steps):
             yield self.batch(step)
+
+
+def loader_for(cfg_model, shape, *, noise: float = 0.1, seed: int = 0,
+               batch_override: Optional[int] = None,
+               device: DeviceLike = None) -> SyntheticLM:
+    """Build a loader matched to a ModelConfig + InputShape."""
+    return SyntheticLM(SyntheticConfig(
+        vocab_size=cfg_model.vocab_size,
+        seq_len=shape.seq_len,
+        global_batch=batch_override or shape.global_batch,
+        noise=noise,
+        ext_embed_dim=cfg_model.ext_embed_dim,
+        seed=seed), device=device)
+
+
+# ---------------------------------------------------------------------------
+# DHT-backed data provider (paper §3.9): supernodes host dataset shards;
+# compnodes holding Input/Label placeholders fetch from the DHT.
+# ---------------------------------------------------------------------------
+
+class DataProvider:
+    """Batches published into the DHT as numpy arrays (what a peer would
+    store and ship); ``fetch`` returns tensors on the loader's device."""
+
+    def __init__(self, lm: SyntheticLM, dht: DHT, *, shard_batches: int = 8):
+        self.lm = lm
+        self.dht = dht
+        self.shard_batches = shard_batches
+
+    def publish(self, start_step: int, n_steps: int) -> int:
+        """Precompute batches into the DHT; returns #keys written."""
+        n = 0
+        for step in range(start_step, start_step + n_steps):
+            batch = self.lm.batch(step)
+            self.dht.put(f"data/{self.lm.cfg.seed}/{step}",
+                         {k: v.cpu().numpy() for k, v in batch.items()})
+            n += 1
+        return n
+
+    def fetch(self, step: int) -> dict:
+        got = self.dht.get(f"data/{self.lm.cfg.seed}/{step}")
+        if got is None:      # cache miss: regenerate deterministically
+            return self.lm.batch(step)
+        return {k: torch.from_numpy(v).to(self.lm.device)
+                for k, v in got.items()}

@@ -11,6 +11,8 @@ import torch
 from repro_torch.kernels.flash_attention import FlashAttention
 from repro_torch.kernels.mamba_scan import mamba_scan_fwd
 from repro_torch.kernels.paged_attention import paged_attention_fwd
+from repro_torch.kernels.quantize import (DEFAULT_BLOCK, int8_dequantize_fwd,
+                                          int8_quantize_fwd)
 from repro_torch.kernels.rwkv_scan import rwkv_scan_fwd
 
 
@@ -24,6 +26,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     differentiable, with the kernel as the forward and a plain blocked
     backward (see ``kernels.flash_attention``)."""
     return FlashAttention.apply(q, k, v, causal, window, scale)
+
+
+def int8_quantize(x: torch.Tensor, *, block: int = DEFAULT_BLOCK):
+    """x: any shape -> (codes int8 (n_rows, block), scales f32 (n_rows, 1)).
+    Rows are contiguous ``block``-element groups of the flattened input.
+    The signature and result of ``repro.kernels.ops.int8_quantize``."""
+    return int8_quantize_fwd(x, block=block)
+
+
+def int8_dequantize(q: torch.Tensor, scales: torch.Tensor, shape,
+                    dtype=torch.float32) -> torch.Tensor:
+    """(codes, scales) -> ``code * scale`` as ``dtype`` of ``shape``.  The
+    signature and result of ``repro.kernels.ops.int8_dequantize``."""
+    return int8_dequantize_fwd(q, scales, shape, dtype)
 
 
 def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,

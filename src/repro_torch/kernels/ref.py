@@ -7,9 +7,11 @@ version on the card.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30  # finite "minus infinity" keeps online softmax NaN-free
 
@@ -192,3 +194,35 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not return_lse:
         return out
     return out, (m + torch.log(l)).reshape(B, Hq, S)
+
+
+def int8_quantize_ref(x: torch.Tensor, block: int = 256):
+    """Per-block absmax int8: x (any shape) -> (codes int8 (rows, block),
+    scales float32 (rows, 1)), rows = ceil(numel / block), each row
+    ``block`` consecutive elements of the flattened input, the last one
+    zero-padded.  ``scale = absmax / 127 + 1e-12`` by true division on
+    every device, and ``code = clip(round_half_even(x / scale), -127,
+    127)``: the arithmetic of ``repro.core.compression.int8_block_encode``
+    (and the Pallas ``int8_quantize``).  A row holding a NaN gets a NaN
+    scale; a NaN quotient codes as 0 (XLA's float-to-int conversion)."""
+    flat = x.reshape(-1)
+    pad = -flat.numel() % block
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    rows = flat.reshape(-1, block).float()
+    amax = rows.abs().amax(dim=1, keepdim=True)
+    # a tensor divisor: on CUDA, ``amax / 127.0`` (a host scalar) would
+    # multiply by the rounded reciprocal, one ulp off in some rows
+    scale = amax / torch.full_like(amax, 127.0) + 1e-12
+    q = rows.div(scale).round_().clamp_(-127, 127).nan_to_num_(nan=0.0)
+    return q.to(torch.int8), scale
+
+
+def int8_dequantize_ref(q: torch.Tensor, scales: torch.Tensor, shape,
+                        dtype=torch.float32) -> torch.Tensor:
+    """``code * scale`` in float32, cast to ``dtype``, trimmed to the first
+    ``prod(shape)`` elements and reshaped: ``repro.kernels.ref.
+    int8_dequantize_ref`` (and the Pallas ``int8_dequantize``)."""
+    n = math.prod(shape)
+    flat = (q.float() * scales).reshape(-1)
+    return flat[:n].reshape(shape).to(dtype)

@@ -268,11 +268,17 @@ print(" ".join(mods))
                           text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
     mods = set(proc.stdout.split())
-    assert len(mods) >= 34
+    assert len(mods) >= 47
     assert {"repro_torch.models.ssm", "repro_torch.kernels.rwkv_scan",
             "repro_torch.configs.rwkv6_7b",
             "repro_torch.kernels.flash_attention", "repro_torch.tree",
             "repro_torch.train.loss", "repro_torch.train.step",
             "repro_torch.train.trainer", "repro_torch.optim.adamw",
             "repro_torch.data.synthetic", "repro_torch.checkpoint.store",
-            "repro_torch.launch.train"} <= mods
+            "repro_torch.launch.train", "repro_torch.kernels.quantize",
+            "repro_torch.core", "repro_torch.core.workload",
+            "repro_torch.core.dag", "repro_torch.core.perfmodel",
+            "repro_torch.core.decomposer", "repro_torch.core.scheduler",
+            "repro_torch.core.pipeline", "repro_torch.core.dht",
+            "repro_torch.core.broker", "repro_torch.core.compression",
+            "repro_torch.core.executor"} <= mods

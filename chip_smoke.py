@@ -8,12 +8,17 @@ imports ``repro_torch``, torch and numpy only.  Phases, each fatal on
 failure:
 
 1. build every kernel of ``src/repro_torch/kernels/csrc`` with nvcc and
-   print each instance's registers and spilled bytes;
-2. hold each kernel against its plain PyTorch version on the card over
+   print each instance's registers, static shared memory, spilled bytes
+   and stack, the compiler's warnings and advisories, the dynamic shared
+   memory of the flash and paged-decode blocks, and whether the flash
+   library's SASS holds HGMMA (tensor-core) instructions (informational);
+2. hold the paged-decode kernel against its plain PyTorch version and
+   against the plain mirror of its split-K algorithm on the card over
    the sweep of ``tests/test_paged_kernel.py`` plus the decode shapes of
    qwen3-8b and jamba-1.5-large (32 and 64 q heads over 8 kv heads;
    bf16 within 2e-2, f32 within 1e-4 — the sums run in another
-   order than the plain version's), and check that -1 table columns are
+   order than the plain version's), and check that -1 table columns
+   (2 and 9 appended, inside a split and as whole empty splits) are
    exactly neutral and idle slots exactly zero;
 3. serve qwen3-8b at full width (random bf16 weights drawn on the card)
    through ``ServingEngine(paged=True, use_kernel=True)``: 16 requests,
@@ -25,7 +30,10 @@ failure:
 4. time serving (CUDA events around each engine step) and the kernel at
    the served shape beside its bound, its plain version and
    ``F.scaled_dot_product_attention`` on the gathered K/V (a yardstick
-   only; the port never calls it);
+   only; the port never calls it): kernel and SDPA by their device time
+   under ``torch.profiler`` (a ~20 µs launch takes less device time than
+   its wrapper's host time, so back-to-back event timing, printed beside
+   it, measures the host);
 5. hold the ``rwkv_scan`` kernel against its plain version over the sweep
    of ``tests/test_kernels.py::test_rwkv_scan_vs_ref`` (zero state), with
    a nonzero initial state and the final state returned (S = 1, 150),
@@ -74,7 +82,10 @@ failure:
    tokens wherever the top-2 margin exceeds the floor, and in float32
    activations with the live slots' logits within 2e-2 of their scale
    and equal greedy tokens; idle slots keep their Mamba state and conv
-   history bit for bit;
+   history bit for bit.  Then one ``moe_apply`` layer at
+   qwen3-moe-235b-a22b's widths (d 4096, 128 experts of 1536, top-8,
+   4.83 GB of bf16 experts drawn on the card) runs twice on 8 decode rows
+   and twice on one 128-token chunk: the same bits each time;
 10. time ``mamba_scan`` at both served shapes beside its bound (bytes,
    float32 flops and exps on the SFUs) and its plain version (no single
    PyTorch call computes the selective scan, so there is no library
@@ -84,8 +95,8 @@ failure:
    sweep of ``tests/test_kernels.py::test_flash_attention_vs_ref`` (plus
    T > S) and at the training shape of qwen3-8b (B=2, S=4096, GQA 32 / 8
    heads of 128) with and without a 1,024-token window, each in bf16
-   and f32: output bf16 within 2e-2, f32 within 1e-4, logsumexp within
-   1e-4; then autograd
+   (the tensor-core instance) and f32 (the CUDA-core instance): output
+   bf16 within 2e-2, f32 within 1e-4, logsumexp within 1e-4; then autograd
    through the port's flash attention (kernel forward, plain blocked
    backward) against autograd through the plain version, f32, each
    gradient within 1e-4 of its scale;
@@ -141,6 +152,10 @@ repository's sources, it exits nonzero and prints no result.
 
 ``python3 chip_smoke.py --plane-lr-sweep`` builds the kernels and runs
 only the SGD learning-rate sweep of phase 15's cluster (``plane_lr_sweep``).
+``python3 chip_smoke.py --kernels`` builds the kernels, runs the kernel
+checks (phases 2, 5 and 11), times the paged decode and flash kernels
+(as phases 4, 10 and 13 do) and runs the MoE bits check; it serves and
+trains nothing and prints no result line.
 """
 from __future__ import annotations
 
@@ -168,23 +183,39 @@ def fail(msg: str) -> None:
 
 
 def ptxas_summary(log: str):
-    """(kernel instance, registers, spilled bytes) from nvcc -Xptxas=-v
-    output; the instance is the kernel's name and its mangled template
-    arguments."""
-    out, name, spill = [], None, 0
+    """(kernel instance, registers, static shared bytes, spilled bytes,
+    stack frame bytes) from nvcc -Xptxas=-v output; the instance is the
+    kernel's name and its mangled template arguments."""
+    out, name, spill, stack = [], None, 0, 0
     for line in log.splitlines():
         m = re.search(r"entry function '\w*?\d+([a-z_]+_kernel)I(\w*?)EEv",
                       line)
         if m:
             name, spill = f"{m.group(1)}<{m.group(2)}>", 0
-        m = re.search(r"(\d+) bytes spill stores", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
         if m:
-            spill = int(m.group(1))
+            spill = int(m.group(2))
+            stack = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            out.append((name, int(m.group(1)), spill))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out.append((name, int(m.group(1)), int(sm.group(1)) if sm else 0,
+                        spill, stack))
             name = None
     return out
+
+
+def sass_mma_count(lib: Path):
+    """Tensor-core instructions in a built library's SASS: {"HGMMA": n,
+    "HMMA": n} from cuobjdump, or None where there is no cuobjdump."""
+    import shutil
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(exe).exists():
+        return None
+    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "HMMA")}
 
 
 def card_line() -> str:
@@ -265,6 +296,12 @@ def decode_case(Hq, dtype, seed=0):
 
 
 def phase_kernel_vs_plain(fwd, ref):
+    """The kernel against the sequential plain version and against the
+    plain mirror of its split-K algorithm (``paged_attention_split_ref``),
+    both at the dtype's tolerance; -1 columns appended (inside a split
+    and as whole empty splits) leave the output bit for bit; an idle
+    slot outputs exact zeros."""
+    from repro_torch.kernels.ref import paged_attention_split_ref
     worst = {}
     for dname, dtype in (("bfloat16", torch.bfloat16),
                          ("float32", torch.float32)):
@@ -286,14 +323,22 @@ def phase_kernel_vs_plain(fwd, ref):
             err = (out.float() - exp.float()).abs().max().item()
             torch.testing.assert_close(out.float(), exp.float(), atol=tol,
                                        rtol=tol)
+            split = run_kernel(paged_attention_split_ref, c, **kw)
+            torch.testing.assert_close(out.float(), split.float(), atol=tol,
+                                       rtol=tol)
             worst[dname] = max(worst.get(dname, 0.0), err)
         # a -1 column is exactly neutral; an idle slot outputs exact zeros
+        for c in (cases[0][0], cases[-2][0]):
+            base = run_kernel(fwd, c)
+            for extra in (2, 9):
+                wide = dict(c, table=torch.cat(
+                    [c["table"], torch.full_like(c["table"][:, :1].expand(
+                        -1, extra), -1)], 1).contiguous())
+                if not torch.equal(run_kernel(fwd, wide), base):
+                    fail(f"{dname}: {extra} -1 table columns changed the "
+                         f"output")
         c = cases[0][0]
         base = run_kernel(fwd, c)
-        wide = dict(c, table=torch.cat(
-            [c["table"], torch.full_like(c["table"][:, :2], -1)], 1).contiguous())
-        if not torch.equal(run_kernel(fwd, wide), base):
-            fail(f"{dname}: a -1 table column changed the output")
         idle = dict(c, q_pos=c["q_pos"].clone())
         idle["q_pos"][1, 0] = -1
         out = run_kernel(fwd, idle)
@@ -301,8 +346,8 @@ def phase_kernel_vs_plain(fwd, ref):
             fail(f"{dname}: an idle slot did not output exact zeros")
         torch.cuda.synchronize()
         print(f"kernel vs plain [{dname}]: {len(cases)} cases, max abs err "
-              f"{worst[dname]:.3e} (tol {tol}); -1 columns neutral, idle "
-              f"slots zero")
+              f"{worst[dname]:.3e} (tol {tol}; also within it of the split-K "
+              f"mirror); -1 columns neutral, idle slots zero")
     return worst
 
 
@@ -514,6 +559,22 @@ def event_ms(fn, n):
     return a.elapsed_time(b) / n
 
 
+def device_ms(fn, n):
+    """Device time per call of ``fn(i)``, from the kernel durations that
+    ``torch.profiler`` records over ``n`` calls (CUPTI): the time the
+    card spends in the call's kernels, not the host time between them.
+    None if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy / n / 1e3 if busy > 0 else None
+
+
 def phase_kernel_times(fwd, ref, Hq, model):
     import torch.nn.functional as F
     from repro_torch.models.layers import gather_pages, gather_pos
@@ -528,7 +589,13 @@ def phase_kernel_times(fwd, ref, Hq, model):
     max_err = (out.float() - exp.float()).abs().max().item()
     for _ in range(3):
         run_kernel(fwd, c)
-    ms = event_ms(lambda i: run_kernel(fwd, cases[i % 4]), 200)
+    # a launch takes less device time than the wrapper's host time, so
+    # back-to-back calls timed by events measure the host: the kernel's
+    # time is its device time under the profiler (events kept beside it)
+    call_ms = event_ms(lambda i: run_kernel(fwd, cases[i % 4]), 200)
+    ms = device_ms(lambda i: run_kernel(fwd, cases[i % 4]), 200)
+    if ms is None:
+        fail("the profiler saw no device time for the paged kernel")
     plain_ms = event_ms(lambda i: run_kernel(ref, cases[i % 4]), 5)
 
     def sdpa_inputs(c):
@@ -548,7 +615,8 @@ def phase_kernel_times(fwd, ref, Hq, model):
     torch.testing.assert_close(lib.float(), exp.float(), atol=2e-2, rtol=2e-2)
     for i in range(3):
         sdpa(i)
-    library_ms = event_ms(sdpa, 200)
+    library_call_ms = event_ms(sdpa, 200)
+    library_ms = device_ms(sdpa, 200)
 
     # least time for the same work, from this run's data: each allocated
     # page's K/V (+ positions) read once per kv head, q / table / q_pos
@@ -563,14 +631,16 @@ def phase_kernel_times(fwd, ref, Hq, model):
     bound_ms = max(t_bytes, t_ops)
     print(f"paged_attention at {model}'s served shape (B=8, Hq={Hq}, Hkv=8, "
           f"D=128, page 16, 64 columns, {cols} allocated): kernel "
-          f"{ms * 1e3:.2f} us, "
-          f"bound {bound_ms * 1e3:.2f} us ({byts / 1e6:.2f} MB), plain "
-          f"{plain_ms * 1e3:.1f} us, sdpa on gathered K/V "
-          f"{library_ms * 1e3:.2f} us")
+          f"{ms * 1e3:.2f} us of device time ({call_ms * 1e3:.2f} us per call "
+          f"back to back), bound {bound_ms * 1e3:.2f} us ({byts / 1e6:.2f} "
+          f"MB), plain {plain_ms * 1e3:.1f} us, sdpa on gathered K/V "
+          f"{library_ms * 1e3:.2f} us of device time ({library_call_ms * 1e3:.2f}"
+          f" us per call)")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "max_abs_err": max_err}
+            "max_abs_err": max_err, "call_ms": call_ms,
+            "library_call_ms": library_call_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1073,6 +1143,41 @@ def jamba_config():
                                period=cfg.period[:JAMBA_LAYERS])
 
 
+# qwen3-moe-235b-a22b's MoE widths (hf:Qwen/Qwen3-235B-A22B): d_model 4096,
+# 128 experts of 1536, top-8; one layer's experts are 4.83 GB of bf16
+QWEN3_MOE = dict(d_model=4096, n_experts=128, d_expert=1536, top_k=8,
+                 n_shared_experts=0)
+
+
+def phase_moe_bits():
+    """One ``moe_apply`` layer at qwen3-moe-235b-a22b's widths (random bf16
+    experts drawn on the card), run twice on 8 decode rows and twice on
+    one 128-token chunk: each pair must give the same bits (the top-8
+    combine sums each token's eight terms in a fixed order, no atomics)."""
+    import dataclasses
+    from repro_torch.models.layers import moe_apply, moe_init
+    cfg = dataclasses.replace(jamba_config(), **QWEN3_MOE)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = moe_init(gen, cfg, device="cuda")
+    expert_gb = sum(p[k].numel() * 2 for k in ("w_gate", "w_up", "w_down")) / 1e9
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for what, shape in (("8 decode rows", (8, 1, cfg.d_model)),
+                        ("one 128-token chunk", (1, 128, cfg.d_model))):
+        x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        o1, a1 = moe_apply(p, x, cfg)
+        o2, a2 = moe_apply(p, x, cfg)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(o1.float()).all() and torch.equal(o1, o2)
+                and torch.equal(a1, a2)):
+            fail(f"moe_apply top-{cfg.top_k} on {what}: two runs differ")
+        print(f"moe_apply at qwen3-moe-235b-a22b's widths (d {cfg.d_model}, "
+              f"{cfg.n_experts} experts of {cfg.d_expert}, top-{cfg.top_k}; "
+              f"{expert_gb:.2f} GB of bf16 experts) on {what}: two runs give "
+              f"the same bits")
+    del p
+    torch.cuda.empty_cache()
+
+
 def phase_serve_jamba(mamba_fwd, paged_fwd, kernels):
     from repro_torch.models import ssm
     from repro_torch.models.config import MAMBA, MOE
@@ -1558,8 +1663,9 @@ TRAIN_STEPS = 7                  # one warmup step, then six timed
 # bf16 roundings) measured the rounding floor once: loss 1.5e-5, grad
 # norm 1.8e-5, grads 1.5e-2 on an H100 80GB HBM3 at 700 W, the last from
 # bf16 gradients through 8 layers.  The tolerances sit at about 7x, 5x
-# and 1.3x that floor; the kernel path measured 6.4e-6, 3.7e-7 and
-# 1.65e-2 there.
+# and 1.3x that floor; the float32 CUDA-core kernel measured 6.4e-6,
+# 3.7e-7 and 1.65e-2 there, the bf16 tensor-core kernel (P as bf16 hi + lo,
+# the softmax in expf) 1.42e-5, 5.79e-5 and 1.761e-2.
 STEP0_TOL = {"loss": 1e-4, "grad_norm": 1e-4, "grads": 2e-2}
 
 
@@ -1640,7 +1746,7 @@ def profile_train_step(trainer, step_fn, loader):
     def share(pred):
         return sum(e.self_device_time_total for e in kernels
                    if pred(e.key)) / busy
-    flash = share(lambda k: "flash_fwd_kernel" in k)
+    flash = share(lambda k: "flash_fwd" in k)     # either instance
     gemm = share(lambda k: any(w in k for w in ("gemm", "xmma", "cutlass",
                                                 "nvjet")))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
@@ -2232,6 +2338,51 @@ def phase_plane(kernels, flash_fwd):
     return launches, r
 
 
+def print_build_report(build, libs) -> None:
+    """Registers, static shared memory and spills of every kernel instance
+    (ptxas), the dynamic shared memory of the redesigned kernels' blocks,
+    the compiler's warnings, and whether the flash library's SASS holds
+    tensor-core instructions (informational, not a gate)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+    for name, log in sorted(build.logs.items()):
+        print(f"ptxas {name}: " + "; ".join(
+            f"{inst} {regs} regs {smem} B static smem {spill} B spilled "
+            f"{stack} B stack" for inst, regs, smem, spill, stack
+            in ptxas_summary(log)))
+        for line in log.splitlines():
+            if "warning" in line.lower() or "(C7" in line:
+                print(f"nvcc {name}: {line.strip()}")
+    for D in (64, 128, 256):
+        inst = FA.instance(torch.bfloat16, D)
+        print(f"flash_attention bf16 D={D}: tensor cores "
+              f"{inst['tensor_cores']}, {inst['smem_bytes']} B dynamic smem "
+              f"per block")
+    print(f"paged_attention: {PA.PAGES_PER_SPLIT} table columns per split; "
+          f"{PA.smem_bytes(4, 128, 128, 0, 16, 2)} / "
+          f"{PA.smem_bytes(8, 128, 128, 0, 16, 2)} B dynamic smem per block "
+          f"at G = 4 / 8, D = 128, page 16, bf16")
+    counts = sass_mma_count(libs["flash_attention"])
+    print("flash_attention SASS: " + (
+        "not checked (no cuobjdump)" if counts is None else
+        f"{counts['HGMMA']} HGMMA, {counts['HMMA']} HMMA instructions"))
+
+
+def kernels_only(pa_fwd, pa_ref, fa_fwd, fa_ref) -> None:
+    """``chip_smoke.py --kernels``: after the kernel checks, time the paged
+    decode kernel at both served shapes and the flash kernel at the
+    training shape (each beside its bound, plain version and SDPA), and
+    run the MoE bits check; no model is served or trained."""
+    phase_kernel_times(pa_fwd, pa_ref, QWEN3_HQ, "qwen3-8b")
+    phase_kernel_times(pa_fwd, pa_ref, JAMBA_HQ, "jamba-1.5-large")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_flash_times(fa_fwd, fa_ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_moe_bits()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2264,10 +2415,7 @@ def main() -> int:
     if sys.argv[1:] == ["--plane-lr-sweep"]:
         plane_lr_sweep()
         return 0
-    for name, log in sorted(build.logs.items()):
-        print(f"ptxas {name}: " + "; ".join(
-            f"{inst} {regs} regs {spill} B spilled"
-            for inst, regs, spill in ptxas_summary(log)))
+    print_build_report(build, libs)
 
     phase_kernel_vs_plain(paged_attention_fwd, paged_attention_ref)
     phase_rwkv_vs_plain(rwkv_scan_fwd, rwkv_scan_ref)
@@ -2275,6 +2423,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_flash_backward()
+    if sys.argv[1:] == ["--kernels"]:
+        kernels_only(paged_attention_fwd, paged_attention_ref,
+                     flash_attention_fwd, flash_attention_ref)
+        return 0
     pa_launches, _ = phase_serve(paged_attention_fwd, kernels)
     pa_times = phase_kernel_times(paged_attention_fwd, paged_attention_ref,
                                   QWEN3_HQ, "qwen3-8b")
@@ -2291,6 +2443,7 @@ def main() -> int:
                                           kernels)
     gc.collect()                         # jamba's 46 GB go before training
     torch.cuda.empty_cache()
+    phase_moe_bits()
     mb_times = phase_mamba_kernel_times(mamba_scan_fwd, mamba_scan_ref)
     pa_jamba = phase_kernel_times(paged_attention_fwd, paged_attention_ref,
                                   JAMBA_HQ, "jamba-1.5-large")

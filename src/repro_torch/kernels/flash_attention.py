@@ -36,8 +36,21 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attention_fwd.argtypes = [p] * 5 + [i] * 6 + [f, i, i, i, p]
         lib.flash_attention_fwd.restype = ctypes.c_int
+        lib.flash_attention_tensor_cores.argtypes = [i, i]
+        lib.flash_attention_tensor_cores.restype = ctypes.c_int
+        lib.flash_attention_smem_bytes.argtypes = [i, i]
+        lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
         lib._repro_typed = True
     return lib
+
+
+def instance(dtype: torch.dtype, D: int) -> dict:
+    """Which kernel instance a call with 16-byte aligned inputs of this
+    dtype and head dim takes (``tensor_cores``: the wgmma instance) and
+    the dynamic shared memory of one of its blocks."""
+    lib, code = _lib(), _DTYPES[dtype]
+    return {"tensor_cores": bool(lib.flash_attention_tensor_cores(code, D)),
+            "smem_bytes": int(lib.flash_attention_smem_bytes(code, D))}
 
 
 def _check(q, k, v) -> None:

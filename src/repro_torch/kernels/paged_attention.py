@@ -3,10 +3,15 @@
 
 For tensors on the CPU it runs the plain version
 (``ref.paged_attention_ref``).  For CUDA tensors it checks what the
-kernel takes, allocates the output, and launches on PyTorch's current
-stream — or raises; nothing falls back.  ``paged_attention_fwd.launches``
-counts launches, so a run can show that its decode ticks went through
-the kernel.
+kernel takes, allocates the output and the float32 scratch of the
+split-K partials, and launches on PyTorch's current stream — or raises;
+nothing falls back.  ``paged_attention_fwd.launches`` counts launches
+(one per call: the merge of the partials runs in the same launch), so a
+run can show that its decode ticks went through the kernel.
+
+The kernel's last block per (slot, kv head) is found with a counter that
+the block resets; the counters live in one zeroed int32 buffer per
+(device, stream), kept here and grown as B * Hkv grows.
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import paged_attention_ref
+from repro_torch.kernels.ref import PAGES_PER_SPLIT, paged_attention_ref
 
 MAX_HEAD_DIM = 256
 MAX_GROUP = 16
@@ -28,19 +33,40 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("paged_attention")
     if not getattr(lib, "_repro_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.paged_attention_fwd.argtypes = ([p] * 9 + [i] * 9
+        lib.paged_attention_fwd.argtypes = ([p] * 11 + [i] * 9
                                             + [f, i, f, i, i, p])
         lib.paged_attention_fwd.restype = ctypes.c_int
-        lib.paged_attention_smem_bytes.argtypes = [i] * 5
+        lib.paged_attention_smem_bytes.argtypes = [i] * 6
         lib.paged_attention_smem_bytes.restype = ctypes.c_longlong
+        lib.paged_attention_pages_per_split.argtypes = []
+        lib.paged_attention_pages_per_split.restype = ctypes.c_int
+        lib.paged_attention_part_floats.argtypes = [i, i]
+        lib.paged_attention_part_floats.restype = ctypes.c_longlong
+        if lib.paged_attention_pages_per_split() != PAGES_PER_SPLIT:
+            raise RuntimeError("paged_attention.cu and ref.PAGES_PER_SPLIT "
+                               "disagree on the columns per split")
         lib._repro_typed = True
     return lib
 
 
-def smem_bytes(G: int, D: int, Dv: int, De: int, page: int) -> int:
+def smem_bytes(G: int, D: int, Dv: int, De: int, page: int,
+               itemsize: int) -> int:
     """Dynamic shared memory one kernel block needs (from the kernel's
     own C function, so the check and the launch share one formula)."""
-    return int(_lib().paged_attention_smem_bytes(G, D, Dv, De, page))
+    return int(_lib().paged_attention_smem_bytes(G, D, Dv, De, page,
+                                                 itemsize))
+
+
+_counters = {}   # (device index, stream) -> zeroed int32 counters
+
+
+def _counters_for(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _counters[key] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                           device=device)
+    return buf
 
 
 def _check(q, k, v, pos, table, q_pos, q_extra, k_extra) -> None:
@@ -106,7 +132,7 @@ def paged_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"paged decode kernel takes head dims <= "
                          f"{MAX_HEAD_DIM} and G <= {MAX_GROUP}: D={D} "
                          f"Dv={Dv} De={De} G={G}")
-    smem = smem_bytes(G, D, Dv, De, page)
+    smem = smem_bytes(G, D, Dv, De, page, q.element_size())
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"paged decode kernel needs {smem} bytes of shared "
                          f"memory per block (> {MAX_SMEM_BYTES}): G={G} "
@@ -116,15 +142,25 @@ def paged_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pools = (k, v) + ((k_extra,) if De else ())
     vec = (all(dim % per16 == 0 for dim in (D, Dv, De))
            and all(t.data_ptr() % 16 == 0 for t in pools))
+    n_cols = table.shape[1]
+    n_splits = -(-n_cols // PAGES_PER_SPLIT)
+    if n_splits > 65535:
+        raise ValueError(f"paged decode kernel takes at most "
+                         f"{65535 * PAGES_PER_SPLIT} table columns: {n_cols}")
     out = torch.empty((B, 1, Hq, Dv), dtype=q.dtype, device=q.device)
+    part = torch.empty(B * Hkv * n_splits
+                       * int(_lib().paged_attention_part_floats(G, Dv)),
+                       dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        counter = _counters_for(q.device, stream, B * Hkv)
         err = _lib().paged_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
             table.data_ptr(), q_pos.data_ptr(),
             q_extra.data_ptr() if De else None,
             k_extra.data_ptr() if De else None, out.data_ptr(),
-            B, Hkv, G, D, Dv, De, page, table.shape[1], N, float(scale),
+            part.data_ptr(), counter.data_ptr(),
+            B, Hkv, G, D, Dv, De, page, n_cols, N, float(scale),
             int(window), float(softcap), _DTYPES[q.dtype], int(vec), stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_fwd: CUDA launch failed "

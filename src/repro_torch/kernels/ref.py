@@ -76,6 +76,79 @@ def paged_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, 1, Hq, Dv).to(q.dtype)
 
 
+# table columns per split of the paged-decode kernel (``PAGES_PER_SPLIT``
+# in csrc/paged_attention.cu, which reports it to the wrapper)
+PAGES_PER_SPLIT = 4
+
+
+def paged_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, pos: torch.Tensor,
+                              table: torch.Tensor, q_pos: torch.Tensor, *,
+                              scale: Optional[float] = None, window: int = 0,
+                              softcap: float = 0.0,
+                              q_extra: Optional[torch.Tensor] = None,
+                              k_extra: Optional[torch.Tensor] = None,
+                              pages_per_split: int = PAGES_PER_SPLIT
+                              ) -> torch.Tensor:
+    """The split-K algorithm of the paged-decode kernel, in plain ops.
+
+    Same arguments and result as ``paged_attention_ref``.  Split s covers
+    the fixed table columns [s * pages_per_split, (s + 1) *
+    pages_per_split) (columns past the table count as -1), so appending
+    columns never moves a boundary.  Each split's ``pages_per_split *
+    page`` rows give a partial (m_s = its largest unmasked score, or
+    -1e30; l_s = sum of exp(s - m_s) over unmasked rows; acc_s = the
+    same weights times V); the partials then merge in split order:
+    ``M = max m_s``, ``l = sum l_s e^(m_s - M)``, ``o = sum acc_s
+    e^(m_s - M) / max(l, 1e-30)``, skipping the splits with l_s = 0
+    (no unmasked row: adding them would add exactly 0).  So -1 columns
+    are neutral bit for bit, and an idle slot outputs exact zeros."""
+    B, _, Hq, D = q.shape
+    page, Hkv, Dv = v.shape[1], v.shape[2], v.shape[3]
+    G = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    n_cols = table.shape[1]
+    n_splits = -(-n_cols // pages_per_split)
+    tab = F.pad(table, (0, n_splits * pages_per_split - n_cols), value=-1)
+    R = pages_per_split * page
+    qf = q.float().reshape(B, Hkv, G, D) * scale
+    qe = None
+    if q_extra is not None:
+        qe = q_extra.float().reshape(B, Hkv, G, q_extra.shape[-1]) * scale
+    qp = q_pos.reshape(B, 1)
+    parts = []                  # (m_s, l_s, acc_s), one per split, in order
+    for i in range(n_splits):   # the same ops on the same shapes per split
+        ts = tab[:, i * pages_per_split:(i + 1) * pages_per_split]
+        safe = ts.clamp(min=0).long()
+        s = torch.einsum("bngd,brnd->bngr", qf,
+                         k[safe].reshape(B, R, Hkv, D).float())
+        if qe is not None:
+            s = s + torch.einsum("bngd,brnd->bngr", qe, k_extra[safe].reshape(
+                B, R, Hkv, -1).float())
+        if softcap > 0.0:
+            s = softcap * torch.tanh(s / softcap)
+        pj = pos[safe].reshape(B, R)
+        ok = (ts >= 0).repeat_interleave(page, dim=1) & (pj >= 0) & (pj <= qp)
+        if window > 0:
+            ok &= pj > qp - window
+        okb = ok[:, None, None, :]
+        s = torch.where(okb, s, NEG_INF)
+        m = s.amax(dim=-1)                                # (B,Hkv,G)
+        p = torch.where(okb, torch.exp(s - m[..., None]), 0.0)
+        parts.append((m, p.sum(dim=-1), torch.einsum(
+            "bngr,brnd->bngd", p, v[safe].reshape(B, R, Hkv, Dv).float())))
+    M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l = torch.zeros_like(M)
+    acc = torch.zeros((B, Hkv, G, Dv), dtype=torch.float32, device=q.device)
+    for m, l_s, acc_s in parts:
+        w = torch.where(l_s > 0, torch.exp(m - M), 0.0)
+        l = l + l_s * w
+        acc = acc + acc_s * w[..., None]
+    out = acc / l.clamp(min=1e-30)[..., None]
+    return out.reshape(B, 1, Hq, Dv).to(q.dtype)
+
+
 def mamba_scan_ref(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                    c: torch.Tensor, a: torch.Tensor, *,
                    h0: Optional[torch.Tensor] = None,

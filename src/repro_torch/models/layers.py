@@ -482,8 +482,9 @@ def moe_init(gen: torch.Generator, cfg, lead=(), device=None) -> dict:
 def _moe_dispatch_group(xt: torch.Tensor, gate_vals: torch.Tensor,
                         expert_idx: torch.Tensor, E: int, K: int, C: int):
     """Sort-based dispatch for ONE token group.  xt: (Tg, d);
-    gate_vals / expert_idx: (Tg, K).  Returns (buf (E,C,d), slot,
-    src_token, gates_sorted) for the gather-back.
+    gate_vals / expert_idx: (Tg, K).  Returns (buf (E,C,d), slot, order,
+    gates_sorted) for the gather-back: sorted assignment i is flat
+    assignment ``order[i]`` (token ``order[i] // K``).
 
     Assignment j (token j // K) goes to row ``rank`` of its expert's
     capacity buffer, where ``rank`` counts the earlier assignments to the
@@ -504,7 +505,7 @@ def _moe_dispatch_group(xt: torch.Tensor, gate_vals: torch.Tensor,
     buf = torch.zeros((E * C + 1, d), dtype=xt.dtype, device=xt.device)
     buf.index_put_((slot,), xt[src_token] * keep[:, None].to(xt.dtype))
     gates_sorted = gate_vals.reshape(Tg * K)[order] * keep
-    return buf[:-1].reshape(E, C, d), slot, src_token, gates_sorted
+    return buf[:-1].reshape(E, C, d), slot, order, gates_sorted
 
 
 def moe_capacity(T: int, cfg) -> int:
@@ -546,7 +547,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg):
                   torch.full((T * K,), 1.0 / (T * K), device=x.device))
     aux = cfg.router_aux_coef * E * torch.sum(me * ce)
 
-    buf, slot, src_token, gates_sorted = _moe_dispatch_group(
+    buf, slot, order, gates_sorted = _moe_dispatch_group(
         xt, gate_vals, expert_idx, E, K, C)
 
     # --- batched expert FFN ----------------------------------------------
@@ -555,15 +556,22 @@ def moe_apply(p: dict, x: torch.Tensor, cfg):
     h = torch.bmm(g * u, p["w_down"].to(x.dtype))               # (E,C,d)
 
     # --- gather back + combine with gates --------------------------------
-    # each token receives at most K = 2 terms onto 0.0 in float32, and a
-    # sum of two terms is the same in either order, so the scatter-add is
-    # exact whatever order the device runs it in (for K > 2 it would not
-    # be bitwise reproducible)
+    # Assignment i of the sorted order is flat assignment order[i] = token
+    # * K + k, so writing row i at order[i] puts every (token, k) in its
+    # own row of a (T, K, d) buffer (a dropped one gets the zero trash
+    # row).  The K terms are then added onto 0.0 in float32 in the fixed
+    # order k = 0, 1, ..., K-1: no atomics, so the bits are the same in
+    # every run for any K.  At K = 2 this is the old scatter-add's
+    # 0 + a + b exactly.
     h_flat = torch.cat([h.reshape(E * C, d),
                         torch.zeros((1, d), dtype=h.dtype, device=h.device)])
     per_assign = h_flat[slot].float() * gates_sorted[:, None]
+    by_token = torch.empty_like(per_assign)
+    by_token[order] = per_assign
+    by_token = by_token.reshape(T, K, d)
     out = torch.zeros((T, d), dtype=torch.float32, device=x.device)
-    out.index_add_(0, src_token, per_assign)
+    for k in range(K):
+        out = out + by_token[:, k]
     out = out.to(x.dtype)
     if "shared" in p:
         out = out + ffn_apply(p["shared"], xt)

@@ -90,6 +90,66 @@ def test_flash_attention_matches_jax_kernel(B, Hq, Hkv, S, D, window, dtype):
     np.testing.assert_allclose(lse.numpy(), exp_lse, atol=2e-5, rtol=2e-5)
 
 
+def tc_kernel_rounding_model(q, k, v, *, window=0, p_parts=2):
+    """The arithmetic of the bf16 tensor-core instance of
+    ``csrc/flash_attention.cu``, in float32 torch: exact scores, the online
+    softmax walking the kv tiles of the instance (64 keys for head dims
+    <= 128, 32 for <= 256) from the last down, and P in bf16
+    before P.V (the row sums keep the unrounded P): as hi + lo,
+    hi = bf16(P) and lo = bf16(P - hi) (``p_parts=2``, the kernel), or as
+    bf16(P) alone (``p_parts=1``).  Causal, by index, as the kernel."""
+    B, Hq, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    BK = 64 if D <= 128 else 32
+    c = D ** -0.5
+    kq = k.float().repeat_interleave(Hq // Hkv, dim=1)
+    vq = v.float().repeat_interleave(Hq // Hkv, dim=1)
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), kq) * c
+    i, j = torch.arange(S)[:, None], torch.arange(T)[None, :]
+    ok = j <= i
+    if window:
+        ok &= j > i - window
+    s = s.masked_fill(~ok, float("-inf"))
+    m = torch.full((B, Hq, S, 1), -1e30)
+    l = torch.zeros((B, Hq, S, 1))
+    acc = torch.zeros((B, Hq, S, D))
+    for t in reversed(range(-(-T // BK))):
+        st = s[..., t * BK:(t + 1) * BK]
+        mn = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - mn)
+        p = torch.exp(st - mn)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        vt = vq[..., t * BK:(t + 1) * BK, :]
+        acc = acc * alpha + hi @ vt
+        if p_parts == 2:
+            acc = acc + (p - hi).to(torch.bfloat16).float() @ vt
+        m = mn
+    return (acc / l.clamp(min=1e-30)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("p_parts", [2, 1])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,window,T",
+                         [c + (None,) for c in SWEEP] + [(2, 4, 2, 40, 64, 0, 100)])
+def test_tensor_core_rounding_model_matches_jax_kernel(B, Hq, Hkv, S, D, window,
+                                                       T, p_parts):
+    """The tensor-core kernel's rounding (P to bf16 as hi + lo before P.V,
+    its tile walk) keeps the bf16 output within the bf16 tolerance of the
+    JAX kernel at the sweep shapes and with T > S; so does P rounded to
+    bf16 once, which the kernel does not use (it moved qwen3-8b's step-0
+    gradients past their tolerance on the card)."""
+    q, k, v = qkv(B, Hq, Hkv, S, D, seed=S + D, T=T)
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    exp = np.asarray(jops.flash_attention(*jb, window=window), np.float32)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    out = tc_kernel_rounding_model(tq, tk, tv, window=window, p_parts=p_parts)
+    assert out.shape == (B, Hq, S, D)
+    np.testing.assert_allclose(out.float().numpy(), exp, atol=2e-2, rtol=2e-2)
+    if p_parts == 1:        # the single rounding does move the result
+        plain = flash_attention_ref(tq, tk, tv, window=window)
+        assert not torch.equal(out, plain)
+
+
 def test_more_keys_than_queries_masks_by_index():
     """T > S: query row i attends keys 0..i by index (the TPU kernel's
     masks), not the last S keys."""

@@ -1,8 +1,9 @@
 """The port's top-k MoE (``repro_torch.models.layers.moe_apply``) against
 the JAX package's ``moe_apply`` on the ``jamba-1.5-large-398b`` smoke
-config (4 experts, top-2), with parameters carried across by
-``convert.py``; and the jamba parameter tree (stacked expert and Mamba
-leaves) crossing key for key.
+config (4 experts, top-2, and top-8 of 16 experts), with parameters
+carried across by ``convert.py``; its top-2 combine against the
+``index_add_`` it replaced, bit for bit; and the jamba parameter tree
+(stacked expert and Mamba leaves) crossing key for key.
 
 Inputs are drawn with numpy from a seed and handed to both packages.
 In float32 activations the two differ by float32 summation order only:
@@ -93,14 +94,66 @@ def test_capacity_drops_match_jax(dtype):
     tx = torch.from_numpy(x).reshape(T, -1)
     probs = torch.softmax(tx @ tp["router"], dim=-1)
     gates, idx = torch.topk(probs, cfg.top_k, dim=-1)
-    _, slot, src, _ = TL._moe_dispatch_group(tx, gates, idx, cfg.n_experts,
-                                             cfg.top_k, C)
+    _, slot, order, _ = TL._moe_dispatch_group(tx, gates, idx, cfg.n_experts,
+                                               cfg.top_k, C)
+    src = order // cfg.top_k
     dropped = slot == cfg.n_experts * C
     assert int(dropped[src < 56].sum()) == 2 * (56 - C)   # padding overflow
     assert bool(dropped[src >= 56].any())                 # a live drop
     jo, jaux, to, taux = _run_both(cfg, jp, tp, x, dtype)
     _close_at_scale(to, jo, DTYPES[dtype][2])
     np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_top8_of_16_experts_matches_jax(dtype):
+    """K = 8 over 16 experts (qwen3-moe's top-8 routing at smoke width):
+    each token sums eight gated expert outputs, the case the combine's
+    fixed order exists for.  Outputs and aux must agree with JAX."""
+    cfg = replace(jax_smoke(ARCH), n_experts=16, top_k=8)
+    jp, tp = _moe(cfg, seed=4)
+    x = np.random.RandomState(5).randn(2, 8, cfg.d_model).astype(np.float32)
+    jo, jaux, to, taux = _run_both(cfg, jp, tp, x, dtype)
+    _close_at_scale(to, jo, DTYPES[dtype][2])
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-6)
+
+
+def _index_add_combine(p, x, cfg):
+    """``moe_apply`` with the combine it had before the (T, K, d) buffer:
+    an f32 ``index_add_`` of each assignment onto its token."""
+    B, S, d = x.shape
+    T, E, K = B * S, cfg.n_experts, cfg.top_k
+    C = TL.moe_capacity(T, cfg)
+    xt = x.reshape(T, d)
+    probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, K, dim=-1)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
+    buf, slot, order, gates_sorted = TL._moe_dispatch_group(
+        xt, gate_vals, expert_idx, E, K, C)
+    g = torch.nn.functional.silu(torch.bmm(buf, p["w_gate"].to(x.dtype)))
+    u = torch.bmm(buf, p["w_up"].to(x.dtype))
+    h = torch.bmm(g * u, p["w_down"].to(x.dtype))
+    h_flat = torch.cat([h.reshape(E * C, d), h.new_zeros((1, d))])
+    per_assign = h_flat[slot].float() * gates_sorted[:, None]
+    out = torch.zeros((T, d), dtype=torch.float32)
+    out.index_add_(0, order // K, per_assign)
+    return out.to(x.dtype).reshape(B, S, d)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_top2_combine_equals_the_index_add_bit_for_bit(dtype):
+    """At K = 2 the fixed-order sum over the (T, K, d) buffer is the old
+    scatter-add's 0 + a + b: the same bits, drops included (the capacity
+    case's inputs)."""
+    cfg = jax_smoke(ARCH)
+    assert cfg.top_k == 2
+    _, tp = _moe(cfg, seed=3)
+    rng = np.random.RandomState(2)
+    x = np.repeat(rng.randn(1, 1, cfg.d_model), 8, axis=1).repeat(8, axis=0)
+    x[7] = rng.randn(8, cfg.d_model)
+    tx = torch.from_numpy(x.astype(np.float32)).to(DTYPES[dtype][1])
+    out, _ = TL.moe_apply(tp, tx, cfg)
+    assert torch.equal(out, _index_add_combine(tp, tx, cfg))
 
 
 def test_jamba_params_cross_key_for_key():

@@ -152,10 +152,6 @@ repository's sources, it exits nonzero and prints no result.
 
 ``python3 chip_smoke.py --plane-lr-sweep`` builds the kernels and runs
 only the SGD learning-rate sweep of phase 15's cluster (``plane_lr_sweep``).
-``python3 chip_smoke.py --kernels`` builds the kernels, runs the kernel
-checks (phases 2, 5 and 11), times the paged decode and flash kernels
-(as phases 4, 10 and 13 do) and runs the MoE bits check; it serves and
-trains nothing and prints no result line.
 """
 from __future__ import annotations
 
@@ -1683,33 +1679,45 @@ def train_flops(cfg, B, S):
     return 6 * matmul_params * B * S + 3 * attn_fwd
 
 
-def step0_compare(cfg, params, batch):
-    """Loss, grad norm and gradients of step 0 through the kernel path and
-    through the plain scan attention, from the same params and batch."""
+def step0_run(cfg, params, batch, use_kernel, kv_chunk=1024):
+    """Loss, grad norm and gradients of one training step's forward and
+    backward (remat, chunked cross-entropy) from ``params`` on ``batch``;
+    ``kv_chunk`` sets the plain attention's float32 summation order."""
     from repro_torch.optim.adamw import global_norm
     from repro_torch.train.loss import cross_entropy_chunked
     from repro_torch.train.step import _head_matrix, grads_of
     from repro_torch.models.transformer import forward
+    h, _, _ = forward(params, cfg, batch, remat=True, compute_logits=False,
+                      kv_chunk=kv_chunk, use_kernel=use_kernel)
+    loss, _ = cross_entropy_chunked(h, _head_matrix(params, cfg),
+                                    batch["labels"])
+    grads = grads_of(params, loss)
+    return loss.item(), global_norm(grads).item(), grads
+
+
+def rel_l2(ga, gb) -> float:
+    """L2 norm of the difference of two gradient trees over ``gb``'s."""
     from repro_torch.tree import leaves
+    num = sum(((a.float() - b.float()).square().sum())
+              for a, b in zip(leaves(ga), leaves(gb)))
+    den = sum(b.float().square().sum() for b in leaves(gb))
+    return (num / den).sqrt().item()
 
-    def run(use_kernel):
-        h, _, _ = forward(params, cfg, batch, remat=True, compute_logits=False,
-                          use_kernel=use_kernel)
-        loss, _ = cross_entropy_chunked(h, _head_matrix(params, cfg),
-                                        batch["labels"])
-        grads = grads_of(params, loss)
-        return loss.item(), global_norm(grads).item(), grads
 
-    def rel_l2(ga, gb):
-        num = sum(((a.float() - b.float()).square().sum())
-                  for a, b in zip(leaves(ga), leaves(gb)))
-        den = sum(b.float().square().sum() for b in leaves(gb))
-        return (num / den).sqrt().item()
+def step0_diffs(run, ref) -> dict:
+    """The relative loss, grad norm and gradient differences of one
+    ``step0_run`` result from another, as ``STEP0_TOL`` bounds them."""
+    (l, n, g), (lr, nr, gr) = run, ref
+    return {"loss": abs(l - lr) / abs(lr), "grad_norm": abs(n - nr) / nr,
+            "grads": rel_l2(g, gr)}
 
-    lp, np_, gp = run(False)
-    lk, nk, gk = run(True)
-    d_kernel = {"loss": abs(lk - lp) / abs(lp), "grad_norm": abs(nk - np_) / np_,
-                "grads": rel_l2(gk, gp)}
+
+def step0_compare(cfg, params, batch):
+    """Loss, grad norm and gradients of step 0 through the kernel path and
+    through the plain scan attention, from the same params and batch."""
+    lp, np_, gp = step0_run(cfg, params, batch, False)
+    lk, nk, gk = step0_run(cfg, params, batch, True)
+    d_kernel = step0_diffs((lk, nk, gk), (lp, np_, gp))
     del gk, gp
     print(f"step 0, kernel vs plain scan attention: loss {lk:.6f} vs "
           f"{lp:.6f}, grad norm {nk:.6f} vs {np_:.6f}; relative differences "
@@ -2368,21 +2376,6 @@ def print_build_report(build, libs) -> None:
         f"{counts['HGMMA']} HGMMA, {counts['HMMA']} HMMA instructions"))
 
 
-def kernels_only(pa_fwd, pa_ref, fa_fwd, fa_ref) -> None:
-    """``chip_smoke.py --kernels``: after the kernel checks, time the paged
-    decode kernel at both served shapes and the flash kernel at the
-    training shape (each beside its bound, plain version and SDPA), and
-    run the MoE bits check; no model is served or trained."""
-    phase_kernel_times(pa_fwd, pa_ref, QWEN3_HQ, "qwen3-8b")
-    phase_kernel_times(pa_fwd, pa_ref, JAMBA_HQ, "jamba-1.5-large")
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_flash_times(fa_fwd, fa_ref)
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_moe_bits()
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2423,10 +2416,6 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_flash_backward()
-    if sys.argv[1:] == ["--kernels"]:
-        kernels_only(paged_attention_fwd, paged_attention_ref,
-                     flash_attention_fwd, flash_attention_ref)
-        return 0
     pa_launches, _ = phase_serve(paged_attention_fwd, kernels)
     pa_times = phase_kernel_times(paged_attention_fwd, paged_attention_ref,
                                   QWEN3_HQ, "qwen3-8b")

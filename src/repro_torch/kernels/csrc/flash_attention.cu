@@ -476,7 +476,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     float acc[DP / 2];
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
-    // running max in the base-2 domain (scores x scale x log2 e), row sums
+    // running max of scale x scores (natural domain, expf as the plain
+    // version), row sums
     float m0 = -1e30f, m1 = -1e30f, l0 = 0.f, l1 = 0.f;
     float s[BK / 2];
     uint32_t p[BK / 16][4], pl[BK / 16][4];     // P = hi + lo, both bf16

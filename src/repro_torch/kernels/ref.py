@@ -87,15 +87,14 @@ def paged_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
                               scale: Optional[float] = None, window: int = 0,
                               softcap: float = 0.0,
                               q_extra: Optional[torch.Tensor] = None,
-                              k_extra: Optional[torch.Tensor] = None,
-                              pages_per_split: int = PAGES_PER_SPLIT
+                              k_extra: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
     """The split-K algorithm of the paged-decode kernel, in plain ops.
 
     Same arguments and result as ``paged_attention_ref``.  Split s covers
-    the fixed table columns [s * pages_per_split, (s + 1) *
-    pages_per_split) (columns past the table count as -1), so appending
-    columns never moves a boundary.  Each split's ``pages_per_split *
+    the fixed table columns [s * PAGES_PER_SPLIT, (s + 1) *
+    PAGES_PER_SPLIT) (columns past the table count as -1), so appending
+    columns never moves a boundary.  Each split's ``PAGES_PER_SPLIT *
     page`` rows give a partial (m_s = its largest unmasked score, or
     -1e30; l_s = sum of exp(s - m_s) over unmasked rows; acc_s = the
     same weights times V); the partials then merge in split order:
@@ -109,9 +108,9 @@ def paged_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
     if scale is None:
         scale = D ** -0.5
     n_cols = table.shape[1]
-    n_splits = -(-n_cols // pages_per_split)
-    tab = F.pad(table, (0, n_splits * pages_per_split - n_cols), value=-1)
-    R = pages_per_split * page
+    n_splits = -(-n_cols // PAGES_PER_SPLIT)
+    tab = F.pad(table, (0, n_splits * PAGES_PER_SPLIT - n_cols), value=-1)
+    R = PAGES_PER_SPLIT * page
     qf = q.float().reshape(B, Hkv, G, D) * scale
     qe = None
     if q_extra is not None:
@@ -119,7 +118,7 @@ def paged_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
     qp = q_pos.reshape(B, 1)
     parts = []                  # (m_s, l_s, acc_s), one per split, in order
     for i in range(n_splits):   # the same ops on the same shapes per split
-        ts = tab[:, i * pages_per_split:(i + 1) * pages_per_split]
+        ts = tab[:, i * PAGES_PER_SPLIT:(i + 1) * PAGES_PER_SPLIT]
         safe = ts.clamp(min=0).long()
         s = torch.einsum("bngd,brnd->bngr", qf,
                          k[safe].reshape(B, R, Hkv, D).float())

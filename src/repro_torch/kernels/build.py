@@ -101,3 +101,11 @@ def load(name: str) -> ctypes.CDLL:
         _finish(name, *_start(name))
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+def use(name: str, path: Path) -> None:
+    """Make the wrappers call the library at ``path`` in place of
+    ``csrc/<name>.cu``'s own from now on in this process: another
+    checkout's build of the same source, so that two versions of a
+    kernel are timed in one process."""
+    _loaded[name] = ctypes.CDLL(str(path))

@@ -227,6 +227,51 @@ def rwkv_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, st
 
 
+def rwkv_scan_split_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, u: torch.Tensor, *,
+                        s0: Optional[torch.Tensor] = None,
+                        out_dtype: Optional[torch.dtype] = None,
+                        return_state: bool = False,
+                        rows: Optional[torch.Tensor] = None):
+    """The RWKV kernel's arithmetic in plain ops: ``rwkv_scan_ref`` with
+    the bonus term factored out and the i-sum split as csrc/rwkv_scan.cu
+    splits it.  Same arguments and result.
+
+    Per step ``o_t[j] = sum_i r_t[i] S[i][j] + v_t[j] a_t`` with ``a_t =
+    sum_i r_t[i] u[i] k_t[i]``.  The first sum runs in HD / 8 row groups
+    (HD = 64 for hd <= 64, else 128; rows past hd are zeros): group g
+    holds rows 4g..4g+3 and HD/2 + 4g..HD/2 + 4g+3, and the groups'
+    partial sums add in group order.  The state update is the plain
+    version's."""
+    B, S, H, hd = r.shape
+    HD = 64 if hd <= 64 else 128
+    G = HD // 8
+    order = torch.tensor([m // 4 * (HD // 2) + 4 * g + m % 4
+                          for g in range(G) for m in range(8)],
+                         device=r.device)
+    st = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+          if s0 is None else s0.float())
+    uu = u.float()
+    outs = []
+    for t in range(S):
+        r_t, k_t, v_t, w_t = (a[:, t].float() for a in (r, k, v, w))
+        prod = F.pad(r_t[..., :, None] * st, (0, 0, 0, HD - hd))
+        part = prod[:, :, order].reshape(B, H, G, 8, hd).sum(dim=3)
+        acc = part[:, :, 0]
+        for g in range(1, G):
+            acc = acc + part[:, :, g]
+        a_t = (r_t * uu * k_t).sum(dim=-1, keepdim=True)     # (B,H,1)
+        outs.append(acc + v_t * a_t)
+        st = w_t[..., :, None] * st + k_t[..., :, None] * v_t[..., None, :]
+    o = torch.stack(outs, dim=1).to(out_dtype or r.dtype)
+    if not return_state:
+        return o
+    if rows is not None:
+        st = torch.where(rows.reshape(B, 1, 1, 1), st,
+                         0.0 if s0 is None else s0)
+    return o, st
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         scale: Optional[float] = None,

@@ -25,7 +25,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.models.ssm import _chunked_scan, _rwkv_step  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.ref import rwkv_scan_ref  # noqa: E402
+from repro_torch.kernels.ref import (rwkv_scan_ref,  # noqa: E402
+                                     rwkv_scan_split_ref)
 from repro_torch.kernels.rwkv_scan import rwkv_scan_fwd  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
@@ -96,6 +97,46 @@ def test_rwkv_scan_with_state_matches_jax_chunked_scan(S):
                           s0=t["s0"], out_dtype=torch.float32,
                           return_state=True)
     assert o.dtype == torch.float32 and st.shape == (B, H, hd, hd)
+    _close_at_scale(o.numpy(), np.moveaxis(np.asarray(jo), 0, 1), 2e-5)
+    _close_at_scale(st.numpy(), js, 2e-5)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,S,H,hd,chunk", [(1, 32, 2, 16, 8),
+                                            (2, 64, 3, 16, 16),
+                                            (1, 40, 1, 32, 64)])
+def test_split_mirror_matches_jax_kernel(B, S, H, hd, chunk, dtype):
+    """The plain mirror of the Hopper kernel's arithmetic (the bonus term
+    factored out, the i-sum in row groups added in halving order)
+    against the Pallas kernel, at the tolerances above."""
+    jdt, tdt, tol = DTYPES[dtype]
+    c = rwkv_case(B, S, H, hd, seed=S)
+    exp = jops.rwkv_scan(*(jnp.asarray(c[n], jdt) for n in "rkvw"),
+                         jnp.asarray(c["u"]), chunk=chunk)
+    t = _torch_inputs(c, tdt)
+    out = rwkv_scan_split_ref(*(t[n] for n in "rkvw"), t["u"])
+    assert out.dtype == tdt and out.shape == (B, S, H, hd)
+    _close_at_scale(out.float().numpy(), exp, tol)
+
+
+@pytest.mark.parametrize("S,hd", [(1, 64), (150, 16), (37, 100)])
+def test_split_mirror_with_state_matches_jax_chunked_scan(S, hd):
+    """The mirror in the model path's form against the JAX model's scan:
+    hd 64 fills the kernel's 8 row groups of 8, hd 16 leaves rows past hd
+    as zeros, hd 100 takes 16 row groups of a 128-wide tile."""
+    B, H = 2, 2
+    c = rwkv_case(B, S, H, hd, seed=S + hd, state=True)
+    jr, jk, jv = (jnp.asarray(c[n], jnp.bfloat16) for n in "rkv")
+    ju = jnp.asarray(c["u"])[None]
+    tm = lambda a: jnp.moveaxis(a, 1, 0)
+    js, jo = _chunked_scan(lambda s_, x: _rwkv_step(s_, x, ju),
+                           jnp.asarray(c["s0"]),
+                           (tm(jr), tm(jk), tm(jv), tm(jnp.asarray(c["w"]))),
+                           S)
+    t = _torch_inputs(c, torch.bfloat16, w_dtype=torch.float32)
+    o, st = rwkv_scan_split_ref(t["r"], t["k"], t["v"], t["w"], t["u"],
+                                s0=t["s0"], out_dtype=torch.float32,
+                                return_state=True)
     _close_at_scale(o.numpy(), np.moveaxis(np.asarray(jo), 0, 1), 2e-5)
     _close_at_scale(st.numpy(), js, 2e-5)
 

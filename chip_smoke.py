@@ -500,19 +500,20 @@ def phase_serve(fwd, kernels):
     return launches, timing
 
 
-def profile_ticks(eng, n=3):
+def profile_ticks(eng, n=3, step=None, what="decode ticks"):
     """Device-busy share and the top kernels of ``n`` decode ticks over
-    the 8 slots admitted above, under ``torch.profiler`` (its own
-    overhead inflates the wall time, so the busy share is a lower
-    bound)."""
+    the 8 slots admitted above (or of ``n`` calls of ``step``), under
+    ``torch.profiler`` (its own overhead inflates the wall time, so the
+    busy share is a lower bound)."""
     from torch.profiler import ProfilerActivity, profile
-    eng.tick()
+    step = step or eng.tick
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         for _ in range(n):
-            eng.tick()
+            step()
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
@@ -522,7 +523,7 @@ def profile_ticks(eng, n=3):
         print("profile: the profiler saw no device time (not measured)")
         return {}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"profile of {n} decode ticks: {wall_us / n / 1e3:.2f} ms/tick "
+    print(f"profile of {n} {what}: {wall_us / n / 1e3:.2f} ms/tick "
           f"under the profiler, device busy {busy / n / 1e3:.2f} ms/tick "
           f"({busy / wall_us:.3f} of wall), "
           f"{sum(e.count for e in kernels) / n:.0f} kernels/tick; top: "
@@ -564,11 +565,11 @@ def device_ms(fn, n, kernel=None):
     """Device time per call of ``fn(i)`` over ``n`` calls, from the
     records that ``torch.profiler`` (CUPTI) keeps of the kernels the calls
     launch: the time the card spends in them, not the host time between
-    them.  Only records whose name holds ``kernel`` count (all of the
-    call's when None), and each name must come ``n`` times as often as in
-    one call profiled alone: a dropped or stray record would read as a
-    shorter or longer call, so both are profiled again, up to three times
-    in all, and then the run fails.  Once the serving phases have run, a
+    them.  Only records whose name holds ``kernel`` (or one of a tuple
+    of names) count (all of the call's when None), and each name must
+    come ``n`` times as often as in one call profiled alone: a dropped or
+    stray record would read as a shorter or longer call, so both are
+    profiled again, up to three times in all, and then the run fails.  Once the serving phases have run, a
     session loses the records of its first launches, so each session
     starts with three untimed calls and a marker kernel, and only records
     after the marker count."""
@@ -589,7 +590,8 @@ def device_ms(fn, n, kernel=None):
                     key=lambda e: e.time_range.start)
         marks = [k for k, e in enumerate(ev) if "spin_kernel" in e.name]
         return [e for e in ev[marks[-1] + 1 if marks else len(ev):]
-                if kernel is None or kernel in e.name]
+                if kernel is None or any(k in e.name for k in names)]
+    names = (kernel,) if isinstance(kernel, str) else kernel
     for _ in range(3):
         one = Counter(e.name for e in records(1))
         ev = records(n)
@@ -666,6 +668,187 @@ def phase_kernel_times(fwd, ref, Hq, model):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "max_abs_err": max_err, "call_ms": call_ms,
             "library_call_ms": library_call_ms}
+
+
+# ---------------------------------------------------------------------------
+# Phase 2b / 10b: the paged-decode kernel at MLA's shape
+# ---------------------------------------------------------------------------
+
+# deepseek-v3-671b's absorbed decode: 128 query heads over one latent head
+# of kv_lora_rank 512, the rope term of qk_rope_dim 64, the latent pool as
+# both K and V; scale (qk_nope_dim + qk_rope_dim) ** -0.5
+MLA_HQ, MLA_D, MLA_DE = 128, 512, 64
+MLA_SCALE = (128 + 64) ** -0.5
+
+
+def mla_case(used, dtype, seed=0, N=None, page=16):
+    """8 slots at MLA's shape, 64 table columns of ``page`` rows; ``used``
+    pages per row (an int or one per row); v is the same tensor as k."""
+    c = pool_case(8, MLA_HQ, 1, MLA_D, page, 64, used, seed=seed,
+                  dtype=dtype, De=MLA_DE, N=N)
+    c["v"] = c["k"]
+    return c
+
+
+def mla_decode_case(dtype, seed=0):
+    """The served decode shape of deepseek-v3-671b at 8 slots: rows filled
+    to the mixed lengths of ``decode_case`` (2..40 pages) over a 512-page
+    latent pool."""
+    g = torch.Generator().manual_seed(seed + 100)
+    used = torch.randint(2, 41, (8,), generator=g).tolist()
+    return mla_case(used, dtype, seed=seed, N=512)
+
+
+def phase_mla_vs_plain(fwd, ref):
+    """The kernel at MLA's shape (G = 128, D = Dv = 512, De = 64, k is v)
+    against the sequential plain version and the split-K mirror, with 1,
+    3 and all 64 columns used per row: the tensor-core instance (bf16,
+    16-row pages: the main path's) and the CUDA-core head-tiled instance
+    (float32; and bf16 with 8-row pages, which the tensor-core instance
+    does not take); -1 columns appended leave the output bit for bit; an
+    idle slot outputs exact zeros and leaves the other rows' bits."""
+    from repro_torch.kernels.ref import paged_attention_split_ref
+    worst = {}
+    for dname, dtype, page, inst in (
+            ("bfloat16", torch.bfloat16, 16, "tensor cores"),
+            ("bfloat16", torch.bfloat16, 8, "CUDA cores"),
+            ("float32", torch.float32, 16, "CUDA cores")):
+        tol = TOL[dname]
+        key = f"{dname}, page {page}, {inst}"
+
+        def kern(c):
+            return run_kernel(fwd, c, scale=MLA_SCALE)
+        for used in (1, 3, 64):
+            c = mla_case(used, dtype, seed=used, page=page)
+            out = kern(c)
+            torch.cuda.synchronize()
+            for what, plain in (("plain", ref),
+                                ("split-K mirror", paged_attention_split_ref)):
+                exp = run_kernel(plain, c, scale=MLA_SCALE)
+                err = (out.float() - exp.float()).abs().max().item()
+                scale = max(1.0, exp.float().abs().max().item())
+                if err > tol * scale:
+                    fail(f"MLA {key}, {used} columns: kernel vs {what} "
+                         f"{err} (tol {tol} x scale {scale})")
+                worst[key] = max(worst.get(key, 0.0), err)
+            for extra in (2, 9):
+                wide = dict(c, table=torch.cat(
+                    [c["table"], torch.full_like(c["table"][:, :1].expand(
+                        -1, extra), -1)], 1).contiguous())
+                if not torch.equal(kern(wide), out):
+                    fail(f"MLA {key}: {extra} -1 table columns changed the "
+                         f"output")
+            idle = dict(c, q_pos=c["q_pos"].clone())
+            idle["q_pos"][1, 0] = -1
+            o = kern(idle)
+            if (o[1].abs().max().item() != 0.0
+                    or not torch.equal(o[0], out[0])
+                    or not torch.equal(o[2:], out[2:])):
+                fail(f"MLA {key}: an idle slot did not output exact zeros "
+                     f"or moved another row")
+        torch.cuda.synchronize()
+        print(f"kernel vs plain at MLA's shape [{key}] (B=8, Hq=128, "
+              f"Hkv=1, D=Dv=512, De=64, k is v; 1, 3 and 64 columns "
+              f"used): max abs err {worst[key]:.3e} against the plain "
+              f"version and the split-K mirror (tol {tol} of the scale); -1 "
+              f"columns neutral bit for bit, idle slots zero")
+    return worst
+
+
+def sdpa_backend(fn) -> str:
+    """The kernels one call of ``fn()`` launches, by name (they name the
+    backend ``scaled_dot_product_attention`` picked)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    return "; ".join(n[:60] for n in names)
+
+
+def phase_mla_kernel_times(fwd, ref):
+    """The head-tiled instance at deepseek-v3-671b's served decode shape,
+    by device time, beside its bounds (bytes; operations on the tensor
+    cores, the card's least time; operations on the CUDA cores, the floor
+    of this instance's design), its plain version and
+    ``scaled_dot_product_attention`` on the gathered latents (q = [q_lat
+    | q_rope], k = [ckv | krope], v = ckv: E = 576, Ev = 512)."""
+    import torch.nn.functional as F
+    from repro_torch.models.layers import gather_pages, gather_pos
+    # six pools of 9.4 MB at most in turn, past the 50 MB of L2
+    cases = [mla_decode_case(torch.bfloat16, seed=s) for s in range(6)]
+    c = cases[0]
+    B, _, Hq, D = c["q"].shape
+    page, Dv, De = c["v"].shape[1], c["v"].shape[3], MLA_DE
+    kw = dict(scale=MLA_SCALE)
+    out = run_kernel(fwd, c, **kw)
+    exp = run_kernel(ref, c, **kw)
+    max_err = (out.float() - exp.float()).abs().max().item()
+    for _ in range(3):
+        run_kernel(fwd, c, **kw)
+    # the tensor-core split kernel and the merge kernel
+    ms = device_ms(lambda i: run_kernel(fwd, cases[i % 6], **kw), 100,
+                   ("paged_mma_kernel", "paged_merge_kernel"))
+    call_ms = event_ms(lambda i: run_kernel(fwd, cases[i % 6], **kw), 100)
+    plain_ms = event_ms(lambda i: run_kernel(ref, cases[i % 6], **kw), 3)
+
+    def sdpa_inputs(c):
+        t = c["table"]
+        q = torch.cat([c["q"], c["q_extra"]], -1).transpose(1, 2)
+        kd = torch.cat([gather_pages(c["k"], t),
+                        gather_pages(c["k_extra"], t)],
+                       -1).transpose(1, 2)                    # (B,1,T,576)
+        vd = gather_pages(c["v"], t).transpose(1, 2)          # (B,1,T,512)
+        kp = gather_pos(c["pos"], t)
+        mask = ((kp >= 0) & (kp <= c["q_pos"]))[:, None, None, :]
+        return q, kd, vd, mask
+    gathered = [sdpa_inputs(c) for c in cases]
+
+    def sdpa(i):
+        q, kd, vd, mask = gathered[i % 6]
+        return F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask,
+                                              scale=MLA_SCALE,
+                                              enable_gqa=True)
+    lib = sdpa(0).transpose(1, 2)
+    torch.testing.assert_close(lib.float(), exp.float(), atol=2e-2, rtol=2e-2)
+    backend = sdpa_backend(lambda: sdpa(0))
+    for i in range(3):
+        sdpa(i)
+    library_call_ms = event_ms(sdpa, 100)
+    library_ms = device_ms(sdpa, 100)
+
+    # least time for the same work on this run's data: each allocated
+    # page's latent and rope rows (K is V: read once) and positions read
+    # once, q / q_extra / table / q_pos read once, the output written once;
+    # q.k over D + De and p.v over Dv for every row of an allocated page
+    cols = int((c["table"] >= 0).sum())
+    isz = c["q"].element_size()
+    byts = (cols * page * (D + De) * isz + cols * page * 4
+            + c["table"].numel() * 4 + B * 4 + B * Hq * (D + De) * isz
+            + B * Hq * Dv * isz)
+    flops = 2 * cols * page * Hq * (D + De + Dv)
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_tc, t_cc = flops / BF16_FLOPS * 1e3, flops / F32_FLOPS * 1e3
+    bound_ms = max(t_bytes, t_tc)
+    print(f"paged_attention at deepseek-v3-671b's MLA decode shape (B=8, "
+          f"Hq=128, Hkv=1, D=Dv=512, De=64, page 16, 64 columns, {cols} "
+          f"allocated, k is v): tensor-core instance {ms * 1e3:.2f} us of "
+          f"device time ({call_ms * 1e3:.2f} us per call back to back); "
+          f"bound "
+          f"{bound_ms * 1e3:.2f} us (bytes {byts / 1e6:.2f} MB = "
+          f"{t_bytes * 1e3:.2f} us; {flops / 1e9:.3f} GFLOP = "
+          f"{t_tc * 1e3:.2f} us on the tensor cores, {t_cc * 1e3:.2f} us on "
+          f"the CUDA cores); plain {plain_ms * 1e3:.1f} us; sdpa on the "
+          f"gathered latents {library_ms * 1e3:.2f} us of device time "
+          f"({library_call_ms * 1e3:.2f} us per call), kernels: {backend}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_tc else "operations",
+            "bound_cuda_cores_ms": t_cc, "max_abs_err": max_err,
+            "call_ms": call_ms, "library_call_ms": library_call_ms,
+            "library_kernels": backend}
 
 
 # ---------------------------------------------------------------------------
@@ -1483,6 +1666,201 @@ def phase_serve_jamba(mamba_fwd, paged_fwd, kernels):
     layerwise(toks, pos, "prefill chunk")
     end_to_end(toks, pos, "prefill chunk")
     timing.update(profile_ticks(eng))
+    return launches, timing
+
+
+# ---------------------------------------------------------------------------
+# Phase 9b: deepseek-v3-671b served at full width (depth cut to 4 of 61)
+# ---------------------------------------------------------------------------
+
+DEEPSEEK_LAYERS = 4  # the 3 dense-FFN prefix layers + the first MoE layer
+
+
+def deepseek_config():
+    """deepseek-v3-671b at full width, 4 of its 61 layers; no MTP head
+    (training only: the engine never runs it, and its MoE layer would add
+    22.6 GB)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("deepseek-v3-671b"),
+                               n_layers=DEEPSEEK_LAYERS, mtp_depth=0)
+
+
+def deepseek_reckoning(cfg) -> dict:
+    """bf16 bytes of the served model from its widths (GB): embedding and
+    head, MLA per layer, each dense FFN, the MoE layer's routed and shared
+    experts (the float32 router and norms apart)."""
+    d, H = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+    mla = (d * qr + qr * H * (dn + dr) + d * (kr + dr) + 2 * kr * H * dn
+           + H * dv * d)
+    n_moe = cfg.n_layers - len(cfg.prefix_layers)
+    parts = {"embed + lm_head": 2 * cfg.vocab_size * d,
+             f"MLA x {cfg.n_layers}": cfg.n_layers * mla,
+             f"dense FFN x {len(cfg.prefix_layers)}":
+                 len(cfg.prefix_layers) * 3 * d * cfg.d_ff,
+             f"routed experts x {n_moe}":
+                 n_moe * cfg.n_experts * 3 * d * cfg.d_expert,
+             f"shared expert x {n_moe}":
+                 n_moe * cfg.n_shared_experts * 3 * d * cfg.d_expert}
+    return {k: 2 * v / 1e9 for k, v in parts.items()}
+
+
+def phase_serve_deepseek(paged_fwd, kernels):
+    from repro_torch.models.layers import ffn_apply, moe_apply, rmsnorm
+    from repro_torch.models.mla import mla_apply
+    from repro_torch.models.config import MOE
+    from repro_torch.models.transformer import (_period, embed_inputs,
+                                                forward, init_params, unembed)
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    cfg = deepseek_config()
+    t0 = time.time()
+    params = init_params(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    leaf_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    reck = deepseek_reckoning(cfg)
+    print(f"deepseek-v3-671b, {DEEPSEEK_LAYERS} of 61 layers "
+          f"({len(cfg.prefix_layers)} dense FFN + "
+          f"{cfg.n_layers - len(cfg.prefix_layers)} MoE, MLA in all; "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads, "
+          f"q/kv lora {cfg.q_lora_rank}/{cfg.kv_lora_rank}, nope/rope/v "
+          f"{cfg.qk_nope_dim}/{cfg.qk_rope_dim}/{cfg.v_head_dim}, d_ff "
+          f"{cfg.d_ff}, {cfg.n_experts} experts of {cfg.d_expert} top-"
+          f"{cfg.top_k} + {cfg.n_shared_experts} shared, vocab "
+          f"{cfg.vocab_size}) drawn on the card in {time.time() - t0:.1f}s: "
+          f"reckoned " + ", ".join(f"{k} {v:.3f}" for k, v in reck.items())
+          + f" = {sum(reck.values()):.2f} GB of bf16; leaves {leaf_gb:.2f} GB;"
+          f" {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    eng = ServingEngine(params, cfg, slots=8, cache_len=1024, page_size=16,
+                        chunk=128, paged=True, use_kernel=True, device="cuda")
+    pool_mb = sum(t.numel() * t.element_size()
+                  for t in _leaves(eng.caches)) / 1e6
+    t0 = time.time()
+    eng.warmup()
+    print(f"warmup: {time.time() - t0:.1f}s; latent pools {pool_mb:.1f} MB "
+          f"({eng.num_blocks} pages of 16 x ({cfg.kv_lora_rank} + "
+          f"{cfg.qk_rope_dim}) bf16 + positions, {cfg.n_layers} layers)")
+    reqs = make_rwkv_requests(Request, cfg.vocab_size)[:16]
+    for r in reqs:
+        eng.submit(r)
+    rec = time_steps(eng)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)                # count only the main path's run
+    torch.cuda.synchronize()
+    t0 = time.time()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = paged_fwd.launches
+    st = eng.stats
+    if len(done) != 16 or any(len(r.generated) != 32 for r in done):
+        fail("not every deepseek request finished with 32 tokens")
+    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.generated):
+        fail("a generated token lies outside the vocabulary")
+    if st["shared_pages"] != 0:
+        fail("an MoE engine shared a page")
+    if launches != st["decode_calls"] * cfg.n_layers:
+        fail(f"paged_attention launches {launches} != decode_calls "
+             f"{st['decode_calls']} x {cfg.n_layers}")
+    print(f"served 16 requests x 32 tokens in {wall:.2f}s: "
+          f"{st['prefill_calls']} prefill calls, {st['decode_calls']} decode "
+          f"ticks, {st['shared_pages']} shared pages; paged_attention "
+          f"launches {launches} = {st['decode_calls']} x {cfg.n_layers}")
+    timing = serving_times(rec, wall)
+
+    # a served state: 8 new requests admitted through the kernel path,
+    # then one decode tick with every slot live
+    del eng._call_step                   # back to the untimed step
+    for r in make_rwkv_requests(Request, cfg.vocab_size, seed=1, n=8):
+        eng.submit(r)
+    eng._admit()
+    toks = torch.tensor([[eng.active[s].pending] for s in range(8)],
+                        dtype=torch.int32, device="cuda")
+    pos = torch.tensor([[eng.positions[s]] for s in range(8)],
+                       dtype=torch.int32, device="cuda")
+    for s in range(8):
+        eng._ensure_blocks(s, eng.positions[s], eng.positions[s])
+    table = eng._table_arg()
+
+    # each layer's MLA through the kernel and through the plain path on
+    # the same input (the plain path's residual stream feeds both)
+    ck, cp = copy.deepcopy(eng.caches), copy.deepcopy(eng.caches)
+    x = embed_inputs(params, cfg, {"tokens": toks})
+    layers = [(params["prefix"][i], spec, ck["prefix"][i], cp["prefix"][i])
+              for i, spec in enumerate(cfg.prefix_layers)]
+    for stack in cfg.stacks:
+        for t in range(stack.n_periods):
+            pp = _period(params["stack"], t)
+            pk, pq = _period(ck["stack"], t), _period(cp["stack"], t)
+            layers += [(pp[j], spec, pk[j], pq[j])
+                       for j, spec in enumerate(stack.period)]
+    worst = 0.0
+    for j, (lp, spec, c_k, c_p) in enumerate(layers):
+        h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+        ok_, op = (mla_apply(lp["mixer"], h, cfg, positions=pos, cache=c,
+                             decode=True, masked_slots=True, table=table,
+                             use_kernel=k)[0]
+                   for c, k in ((c_k, True), (c_p, False)))
+        e = ((ok_.float() - op.float()).abs().max()
+             / op.float().abs().max().clamp(min=1e-30)).item()
+        if e > 2e-2:
+            fail(f"deepseek decode tick: layer {j}: kernel vs plain MLA "
+                 f"output {e} of its scale")
+        worst = max(worst, e)
+        x = x + op
+        h = rmsnorm(x, lp["norm2"], cfg.norm_eps)
+        x = x + (moe_apply(lp["ffn"], h, cfg)[0] if spec.ffn == MOE
+                 else ffn_apply(lp["ffn"], h))
+    del ck, cp, x
+    print(f"decode tick, layer by layer on the same input ({cfg.n_layers} "
+          f"MLA layers through the paged-decode kernel): kernel vs plain MLA "
+          f"output max err {worst:.3e} of its scale (tol 2e-2)")
+
+    # the whole model in float32 activations from f32 copies of the caches
+    params32 = dict(params, embed=params["embed"].float())
+    logits = []
+    for use_kernel in (True, False):
+        h, _, _ = forward(params32, cfg, {"tokens": toks},
+                          caches=f32_copy(eng.caches), positions=pos,
+                          decode=True, masked_slots=True, block_table=table,
+                          compute_logits=False, use_kernel=use_kernel)
+        logits.append(unembed(params32, cfg, h[:, -1:, :])[:, 0])
+        del h
+    del params32
+    lk, lp = logits
+    if lk.shape != (8, cfg.vocab_size) or not torch.isfinite(lk).all():
+        fail("deepseek decode logits are not finite (8, vocab)")
+    err = (lk - lp).abs().max().item()
+    scale = max(1.0, lp.abs().max().item())
+    same = int((lk.argmax(-1) == lp.argmax(-1)).sum())
+    top2 = lp.topk(2, dim=-1).values
+    print(f"decode tick, whole model in float32 activations: max |dlogit| "
+          f"kernel vs plain {err:.4e} at logit scale {scale:.3f} (tol "
+          f"{1e-4 * scale:.4e}); greedy equal in {same}/8 (smallest top-2 "
+          f"margin {(top2[:, 0] - top2[:, 1]).min().item():.4e})")
+    if err > 1e-4 * scale:
+        fail(f"deepseek: float32 kernel-path logits differ from the plain "
+             f"path by {err} (tol {1e-4 * scale})")
+    if same != 8:
+        fail("deepseek: a live slot's float32 greedy token differs")
+    del logits, lk, lp
+    timing.update(profile_ticks(eng))
+    # one 128-token prefill chunk into slot MAMBA_LIVE_ROW, the others idle
+    s = MAMBA_LIVE_ROW
+    g = np.random.default_rng(2)
+    toks = np.zeros((8, 128), np.int32)
+    toks[s] = g.integers(0, cfg.vocab_size, 128)
+    pos = np.full((8, 128), -1, np.int32)
+    pos[s] = np.arange(eng.positions[s], eng.positions[s] + 128)
+    if not eng._alloc.reserve(128 // eng.page_size):
+        fail("no pool pages left for the prefill chunk")
+    eng._slot_reserved[s] += 128 // eng.page_size
+    eng._ensure_blocks(s, eng.positions[s], eng.positions[s] + 127)
+    timing.update({f"prefill_{k}": v for k, v in profile_ticks(
+        eng, step=lambda: eng._call_step(toks, pos),
+        what="prefill calls (one live 128-token chunk)").items()})
     return launches, timing
 
 
@@ -2428,9 +2806,16 @@ def print_build_report(build, libs) -> None:
               f"{inst['tensor_cores']}, {inst['smem_bytes']} B dynamic smem "
               f"per block")
     print(f"paged_attention: {PA.PAGES_PER_SPLIT} table columns per split; "
-          f"{PA.smem_bytes(4, 128, 128, 0, 16, 2)} / "
-          f"{PA.smem_bytes(8, 128, 128, 0, 16, 2)} B dynamic smem per block "
-          f"at G = 4 / 8, D = 128, page 16, bf16")
+          f"{PA.smem_bytes('split', 4, 128, 128, 0, 16, 2)} / "
+          f"{PA.smem_bytes('split', 8, 128, 128, 0, 16, 2)} B dynamic smem "
+          f"per block at G = 4 / 8, D = 128, page 16, bf16; at MLA's G = "
+          f"128, D = Dv = 512, De = 64, k is v: tensor-core instance "
+          f"({PA.MMA_HEADS} heads a block) "
+          f"{PA.smem_bytes('mma', 128, 512, 512, 64, 16, 2, True)} B, "
+          f"CUDA-core instance ({PA.TILE_HEADS} heads) "
+          f"{PA.smem_bytes('tiled', 128, 512, 512, 64, 16, 2, True)} / "
+          f"{PA.smem_bytes('tiled', 128, 512, 512, 64, 16, 4, True)} B in "
+          f"bf16 / f32")
     for name in ("rwkv_scan", "mamba_scan"):   # PERF.md names each spill
         spills = [f"{inst} {spill} B" for inst, _, _, spill, _
                   in ptxas_summary(build.logs.get(name, "")) if spill]
@@ -2477,6 +2862,7 @@ def main() -> int:
     print_build_report(build, libs)
 
     phase_kernel_vs_plain(paged_attention_fwd, paged_attention_ref)
+    phase_mla_vs_plain(paged_attention_fwd, paged_attention_ref)
     phase_rwkv_vs_plain(rwkv_scan_fwd, rwkv_scan_ref)
     phase_flash_vs_plain(flash_attention_fwd, flash_attention_ref)
     gc.collect()
@@ -2504,6 +2890,12 @@ def main() -> int:
                                   JAMBA_HQ, "jamba-1.5-large")
     gc.collect()
     torch.cuda.empty_cache()
+    pa_mla = phase_mla_kernel_times(paged_attention_fwd, paged_attention_ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds_launches, _ = phase_serve_deepseek(paged_attention_fwd, kernels)
+    gc.collect()                         # deepseek's 30 GB go before training
+    torch.cuda.empty_cache()
     fa_launches, _, _ = phase_train(flash_attention_fwd, kernels)
     fa_times = phase_flash_times(flash_attention_fwd, flash_attention_ref)
     gc.collect()
@@ -2524,7 +2916,10 @@ def main() -> int:
                         dict(pa_times, launches=pa_launches),
                     "jamba-1.5-large decode B=8 Hq=64 Hkv=8 D=128":
                         dict(pa_jamba,
-                             launches=jamba_launches["paged_attention"])}},
+                             launches=jamba_launches["paged_attention"]),
+                    "deepseek-v3-671b MLA decode B=8 Hq=128 Hkv=1 "
+                    "D=Dv=512 De=64, k is v":
+                        dict(pa_mla, launches=ds_launches)}},
         # the decode shape leads (every tick runs it); both shapes follow
         {"name": "rwkv_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rwkv_scan.cu",

@@ -1,12 +1,16 @@
 """Architecture registry of the port: the configs whose serving path is
 ported — the dense full-attention ones (``gpt3-24l``, ``qwen3-8b``,
-``llama3-405b``, ``qwen1.5-32b``), the attention-free ``rwkv6-7b`` and
-the Mamba + attention + MoE hybrid ``jamba-1.5-large-398b``.
+``llama3-405b``, ``qwen1.5-32b``, ``bert-large``), the attention + MoE
+``qwen3-moe-235b-a22b``, the frontend-stub backbones
+``llava-next-mistral-7b`` and ``musicgen-medium`` (precomputed patch /
+frame embeddings through ``ext_proj``; their engines take tokens), the
+attention-free ``rwkv6-7b``, the Mamba + attention + MoE hybrid
+``jamba-1.5-large-398b`` and the MLA + MoE + MTP ``deepseek-v3-671b``.
 
 Each ``<arch>.py`` module exports ``CONFIG`` (the exact spec, source
 cited) and ``SMOKE`` (a reduced same-family variant runnable on the CPU).
-The other architectures of ``repro.configs`` need mixers, caches or FFNs
-the port does not have yet; asking for one raises ``NotImplementedError``.
+``gemma3-12b`` needs sliding-window attention, which the port does not
+have yet; asking for it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,13 +26,15 @@ _ARCH_MODULES = {
     "qwen1.5-32b": "qwen1_5_32b",
     "rwkv6-7b": "rwkv6_7b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "bert-large": "bert_large",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "musicgen-medium": "musicgen_medium",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
-# archs of the JAX package whose mixers / FFNs are not ported yet
-_NOT_YET_PORTED = ("gemma3-12b",
-                   "llava-next-mistral-7b", "musicgen-medium",
-                   "qwen3-moe-235b-a22b", "deepseek-v3-671b",
-                   "bert-large")
+# archs of the JAX package whose mixers are not ported yet
+_NOT_YET_PORTED = ("gemma3-12b",)
 
 ALL_ARCHS: Tuple[str, ...] = tuple(_ARCH_MODULES)
 

@@ -61,6 +61,45 @@
 // counters are shared by the launches on one device and stream, which
 // run one after another.
 //
+// MLA's absorbed decode (DeepSeek-V3: Hkv = 1, G = 128 query heads over one
+// latent head, D = Dv = kv_lora_rank = 512, De = qk_rope_dim = 64, the
+// latent pool passed as both K and V) is another shape of the same
+// function.  Per cached position a slot reads 1152 bytes (bf16 latent +
+// rope) and does 2 x 128 x 576 + 2 x 128 x 512 = 278.5 K flops: about 240
+// flops a byte, above the ridge of the CUDA cores (67 TFLOP/s f32 over 3.35
+// TB/s, about 20 flops a byte) and below that of the tensor cores (989
+// TFLOP/s, about 295).  So the CUDA cores would set the floor (about 4.2 ns
+// a position) and on the tensor cores the bytes set it again (about 0.3
+// ns).  The design above is compute-bound here: it stages G x (D + De +
+// Dv) query floats and R rows of K and V a block (at MLA's shape the query
+// alone is 295 KB, over the 227 KB a block may use), and every thread
+// loops over all G heads.  Two head-tiled instances take such shapes:
+// * `paged_mma_kernel`, on the tensor cores (bf16, K is V, 16-row pages):
+//   grid (B * Hkv * G / 64, n_splits), the same fixed splits of
+//   PAGES_PER_SPLIT columns, a block of 4 warps takes 64 query heads, a warp
+//   16 (mma.sync m16n8k16's M).  The tile's q rows and the split's 64 K rows
+//   ([latent | rope], one 16-byte unit of padding a row, so ldmatrix's 8
+//   rows hit 8 bank groups) are staged once by cp.async: 148 KB.  Scores
+//   take 36 k-steps of 16, the softmax runs on the score registers (quad
+//   shuffles), P goes to bf16 straight from them as the A operand of P.V,
+//   and V is the staged K rows' first Dv columns, read by transposed
+//   ldmatrix, 128 columns at a time.  Rounding P to bf16 moves the output
+//   by about 2^-9 of its scale;
+// * `paged_tiled_kernel`, on the CUDA cores (float32, which the tensor
+//   cores would round, and shapes the tensor-core instance does not take):
+//   16 heads a block, q staged as f32, a thread per row and 8 heads for the
+//   scores, per 4 columns of V and all 16 heads for P.V, rows in order; K
+//   and V staged once when they are one tensor;
+// * both write each live split's partial per head tile (16 x (Dv + 2) or
+//   64 x (Dv + 2) floats: at B = 8 and 64 columns 33.7 MB at most) and
+//   leave the merge to `paged_merge_kernel`, a block per query head, which
+//   reads them in split order as the last block above does.  A merge in the
+//   last split block, as above, read up to 2 MB of partials from one block
+//   per head tile: most of the kernel's time at this shape.
+// expf stays IEEE-accurate here too.  Per head, the split's max, exp and
+// sum and the ordered merge are those above, so -1 columns stay neutral bit
+// for bit and idle slots output exact zeros.
+//
 // The C entry points return the cudaError_t of the launch (0 = success);
 // the Python wrapper raises on anything else.
 
@@ -701,9 +740,665 @@ int launch_any(bool vec, const void* q, const void* k, const void* v,
                                    window, softcap, s);
 }
 
+// ---------------------------------------------------------------------------
+// The head-tiled instances (see the header): G > MAX_GROUP or head dims past
+// the split kernel's, 16-byte rows only.  A split kernel writes each live
+// split's partial per head tile; paged_merge_kernel then merges them.
+// ---------------------------------------------------------------------------
+
+constexpr int TILE_G = 16;  // query heads a block of the CUDA-core instance
+constexpr int MMA_TH = 64;  // of the tensor-core instance: 4 warps x 16
+constexpr int MMA_R = 64;   // rows a split of it: PAGES_PER_SPLIT pages of 16
+
+// elements of one staged K row: K, K_extra, then one 16-byte unit of padding
+__host__ __device__ inline int tiled_kstride(int D, int De, int isz) {
+  return D + De + 16 / isz;
+}
+
+// Byte offsets of the regions of one CUDA-core tiled block's shared memory.
+struct TiledSmem {
+  size_t qs, ks, vs, sc, ok, total;
+  __host__ __device__ TiledSmem(int D, int Dv, int De, int page, int isz,
+                                bool kv_same) {
+    const size_t R = (size_t)PAGES_PER_SPLIT * page;
+    qs = 0;                                    // TILE_G x (D + De) f32
+    ks = round16(qs + sizeof(float) * TILE_G * (D + De));
+    vs = round16(ks + (size_t)isz * R * tiled_kstride(D, De, isz));
+    sc = round16(vs + (kv_same ? 0 : (size_t)isz * R * Dv));  // R x Dv
+    ok = sc + sizeof(float) * R * TILE_G;      // scores, then p: R x TILE_G
+    total = ok + sizeof(int) * R;
+  }
+};
+
+// ... and of one tensor-core block's: q and K rows in bf16, D + De
+// elements padded by 8 (one 16-byte unit)
+struct MmaSmem {
+  size_t qs, ks, ok, total;
+  __host__ __device__ MmaSmem(int D, int De) {
+    const size_t KS = (size_t)D + De + 8;
+    qs = 0;                                    // MMA_TH x KS
+    ks = round16(qs + 2 * MMA_TH * KS);        // MMA_R x KS
+    ok = round16(ks + 2 * MMA_R * KS);
+    total = ok + sizeof(int) * MMA_R;
+  }
+};
+
+// four consecutive elements as floats (8 bytes of bf16 or 16 of f32)
+__device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  f[0] = x.x, f[1] = x.y, f[2] = x.z, f[3] = x.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&f)[4]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  f[0] = __uint_as_float(x.x << 16), f[1] = __uint_as_float(x.x & 0xffff0000u);
+  f[2] = __uint_as_float(x.y << 16), f[3] = __uint_as_float(x.y & 0xffff0000u);
+}
+
+// This split's table columns into `sblk` (block ids outside the pool count
+// as -1); whether the block has work: a live slot and a live column.
+__device__ __forceinline__ bool tiled_split_start(
+    const int32_t* trow, int n_cols, int num_blocks, int split, int qp,
+    int* sblk) {
+  if (threadIdx.x < PAGES_PER_SPLIT) {
+    const int c = split * PAGES_PER_SPLIT + threadIdx.x;
+    const int x = c < n_cols ? trow[c] : -1;
+    sblk[threadIdx.x] = (x < 0 || x >= num_blocks) ? -1 : x;
+  }
+  __syncthreads();
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < PAGES_PER_SPLIT; ++j) any = any || sblk[j] >= 0;
+  return qp >= 0 && any;
+}
+
+template <typename T, bool KV_SAME>
+__global__ void __launch_bounds__(kThreads, 1) paged_tiled_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const int32_t* __restrict__ pos,
+    const int32_t* __restrict__ table, const int32_t* __restrict__ q_pos,
+    const T* __restrict__ q_extra, const T* __restrict__ k_extra,
+    float* __restrict__ part, int Hkv, int G, int D, int Dv, int De,
+    int page, int n_cols, int num_blocks, float scale, int window,
+    float softcap) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int sblk[PAGES_PER_SPLIT];
+  const TiledSmem L(D, Dv, De, page, (int)sizeof(T), KV_SAME);
+  float* qs = reinterpret_cast<float*>(smem + L.qs);
+  T* ks = reinterpret_cast<T*>(smem + L.ks);
+  T* vs = KV_SAME ? ks : reinterpret_cast<T*>(smem + L.vs);
+  float* sc = reinterpret_cast<float*>(smem + L.sc);
+  int* ok = reinterpret_cast<int*>(smem + L.ok);
+
+  constexpr int E = 16 / sizeof(T);          // elements per 16-byte unit
+  const int n_tiles = (G + TILE_G - 1) / TILE_G;
+  const int ct = blockIdx.x;                 // (slot, kv head, head tile)
+  const int bh = ct / n_tiles, tile = ct % n_tiles;
+  const int b = bh / Hkv, h = bh % Hkv;
+  const int split = blockIdx.y, n_splits = gridDim.y;
+  const int Gt = min(TILE_G, G - tile * TILE_G);  // this tile's query heads
+  const int R = PAGES_PER_SPLIT * page;
+  const int KS = tiled_kstride(D, De, (int)sizeof(T));
+  const int VS = KV_SAME ? KS : Dv;          // V row stride in shared memory
+  const int QW = D + De;                     // staged q row
+  const int tid = threadIdx.x;
+  const size_t head0 =
+      (size_t)b * Hkv * G + (size_t)h * G + (size_t)tile * TILE_G;
+  const size_t part_stride = part_floats(TILE_G, Dv);
+  const int PM = TILE_G * Dv, PL = TILE_G * Dv + TILE_G;
+  float* my_part = part + ((size_t)ct * n_splits + split) * part_stride;
+
+  const int qp = q_pos[b];
+  if (!tiled_split_start(table + (size_t)b * n_cols, n_cols, num_blocks,
+                         split, qp, sblk))
+    return;  // an idle slot or a split with no column: nothing to merge
+
+  // the split's rows: K and K_extra into one padded row, V apart unless it
+  // is K, 16 bytes a cp.async; a -1 column's page is never read
+  {
+    const int uk = D / E, ue = De / E, uv = KV_SAME ? 0 : Dv / E;
+    const int U = uk + ue + uv;
+    for (int x = tid; x < R * U; x += kThreads) {
+      const int r = x / U, u = x % U;
+      const int bb = sblk[r / page];
+      if (bb < 0) continue;
+      const size_t row = ((size_t)bb * page + r % page) * Hkv + h;
+      if (u < uk)
+        cp_async16(ks + (size_t)r * KS + u * E, k + row * D + u * E);
+      else if (u < uk + ue)
+        cp_async16(ks + (size_t)r * KS + D + (u - uk) * E,
+                   k_extra + row * De + (u - uk) * E);
+      else
+        cp_async16(vs + (size_t)r * Dv + (u - uk - ue) * E,
+                   v + row * Dv + (u - uk - ue) * E);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int r = tid; r < R; r += kThreads) {
+    const int bb = sblk[r / page];
+    const int p = bb >= 0 ? pos[(size_t)bb * page + r % page] : -1;
+    ok[r] = (p >= 0) && (p <= qp) && (window <= 0 || p > qp - window);
+  }
+  for (int i = tid; i < TILE_G * QW; i += kThreads) {
+    const int g = i / QW, d = i % QW;
+    float x = 0.f;
+    if (g < Gt)
+      x = d < D ? to_f32(q[(head0 + g) * D + d])
+                : to_f32(q_extra[(head0 + g) * De + d - D]);
+    qs[i] = x;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // scores: a thread per (row, half of the tile's heads); sum over D, times
+  // scale, plus the sum over De times scale.  A masked row scores -1e30
+  constexpr int GH = TILE_G / 2;
+  for (int x = tid; x < 2 * R; x += kThreads) {
+    const int r = x % R, g0 = (x / R) * GH;
+    float a[GH], e[GH];
+#pragma unroll
+    for (int j = 0; j < GH; ++j) a[j] = e[j] = 0.f;
+    const bool live = ok[r];
+    if (live) {
+      const uint4* kr = reinterpret_cast<const uint4*>(ks + (size_t)r * KS);
+#pragma unroll 2
+      for (int u = 0; u < D / E; ++u) {
+        float kf[E];
+        unpack(kr[u], kf);
+#pragma unroll
+        for (int j = 0; j < GH; ++j) {
+          const float* qr = qs + (g0 + j) * QW + u * E;
+#pragma unroll
+          for (int i = 0; i < E; i += 4) {
+            const float4 q4 = *reinterpret_cast<const float4*>(qr + i);
+            a[j] = fmaf(q4.x, kf[i], a[j]);
+            a[j] = fmaf(q4.y, kf[i + 1], a[j]);
+            a[j] = fmaf(q4.z, kf[i + 2], a[j]);
+            a[j] = fmaf(q4.w, kf[i + 3], a[j]);
+          }
+        }
+      }
+      for (int u = D / E; u < QW / E; ++u) {
+        float kf[E];
+        unpack(kr[u], kf);
+#pragma unroll
+        for (int j = 0; j < GH; ++j) {
+          const float* qr = qs + (g0 + j) * QW + u * E;
+#pragma unroll
+          for (int i = 0; i < E; i += 4) {
+            const float4 q4 = *reinterpret_cast<const float4*>(qr + i);
+            e[j] = fmaf(q4.x, kf[i], e[j]);
+            e[j] = fmaf(q4.y, kf[i + 1], e[j]);
+            e[j] = fmaf(q4.z, kf[i + 2], e[j]);
+            e[j] = fmaf(q4.w, kf[i + 3], e[j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < GH; ++j) {
+      float y = a[j] * scale + e[j] * scale;
+      if (softcap > 0.f) y = softcap * tanhf(y / softcap);
+      sc[r * TILE_G + g0 + j] = live ? y : kNegInf;
+    }
+  }
+  __syncthreads();
+
+  // the split's softmax statistics, as in paged_split_kernel
+  {
+    constexpr int TG = kThreads / TILE_G;          // lanes per head
+    const int g = tid / TG, t = tid % TG;
+    float mx = kNegInf;
+    for (int r = t; r < R; r += TG) mx = fmaxf(mx, sc[r * TILE_G + g]);
+#pragma unroll
+    for (int off = TG / 2; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float psum = 0.f;
+    for (int r = t; r < R; r += TG) {
+      const float p = ok[r] ? expf(sc[r * TILE_G + g] - mx) : 0.f;
+      sc[r * TILE_G + g] = p;
+      psum += p;
+    }
+#pragma unroll
+    for (int off = TG / 2; off > 0; off >>= 1)
+      psum += __shfl_xor_sync(0xffffffffu, psum, off);
+    if (t == 0) {
+      my_part[PM + g] = mx;
+      my_part[PL + g] = psum;
+    }
+  }
+  __syncthreads();
+
+  // acc_s = P . V: a thread per 4 adjacent columns of V and all 16 heads,
+  // the split's rows in order (the pages of -1 columns skipped)
+  for (int x = tid; x < Dv / 4; x += kThreads) {
+    const int d = 4 * x;
+    float acc[TILE_G][4];
+#pragma unroll
+    for (int g = 0; g < TILE_G; ++g)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[g][c] = 0.f;
+    for (int j = 0; j < PAGES_PER_SPLIT; ++j) {
+      if (sblk[j] < 0) continue;
+#pragma unroll 2
+      for (int rr = 0; rr < page; ++rr) {
+        const int r = j * page + rr;
+        float vf[4];
+        load4(vs + (size_t)r * VS + d, vf);
+        const float4* pr = reinterpret_cast<const float4*>(sc + r * TILE_G);
+#pragma unroll
+        for (int g4 = 0; g4 < TILE_G / 4; ++g4) {
+          const float4 p4 = pr[g4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc[4 * g4][c] = fmaf(p4.x, vf[c], acc[4 * g4][c]);
+            acc[4 * g4 + 1][c] = fmaf(p4.y, vf[c], acc[4 * g4 + 1][c]);
+            acc[4 * g4 + 2][c] = fmaf(p4.z, vf[c], acc[4 * g4 + 2][c]);
+            acc[4 * g4 + 3][c] = fmaf(p4.w, vf[c], acc[4 * g4 + 3][c]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < TILE_G; ++g)
+      *reinterpret_cast<float4*>(my_part + (size_t)g * Dv + d) =
+          make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The tensor-core split kernel: bf16, K is V, 16-row pages, MMA_TH heads a
+// block, a warp per 16 heads.
+template <int TH>
+__global__ void __launch_bounds__(kThreads, 1) paged_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const int32_t* __restrict__ pos, const int32_t* __restrict__ table,
+    const int32_t* __restrict__ q_pos,
+    const __nv_bfloat16* __restrict__ q_extra,
+    const __nv_bfloat16* __restrict__ k_extra, float* __restrict__ part,
+    int Hkv, int G, int D, int Dv, int De, int n_cols, int num_blocks,
+    float scale, int window, float softcap) {
+  static_assert(TH == 16 * (kThreads / 32), "a warp per 16 heads");
+  using bf16 = __nv_bfloat16;
+  constexpr int page = MMA_R / PAGES_PER_SPLIT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int sblk[PAGES_PER_SPLIT];
+  const MmaSmem L(D, De);
+  bf16* qs = reinterpret_cast<bf16*>(smem + L.qs);
+  bf16* ks = reinterpret_cast<bf16*>(smem + L.ks);
+  int* ok = reinterpret_cast<int*>(smem + L.ok);
+
+  const int QW = D + De, KS = D + De + 8;
+  const int n_tiles = G / TH;
+  const int ct = blockIdx.x;                 // (slot, kv head, head tile)
+  const int bh = ct / n_tiles, tile = ct % n_tiles;
+  const int b = bh / Hkv, h = bh % Hkv;
+  const int split = blockIdx.y, n_splits = gridDim.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t head0 = (size_t)b * Hkv * G + (size_t)h * G + (size_t)tile * TH;
+  const size_t part_stride = part_floats(TH, Dv);
+  const int PM = TH * Dv, PL = TH * Dv + TH;
+  float* my_part = part + ((size_t)ct * n_splits + split) * part_stride;
+
+  const int qp = q_pos[b];
+  if (!tiled_split_start(table + (size_t)b * n_cols, n_cols, num_blocks,
+                         split, qp, sblk))
+    return;  // an idle slot or a split with no column: nothing to merge
+
+  // the tile's query rows [q | q_extra] and the split's rows [K | K_extra],
+  // 16 bytes a cp.async; a -1 column's rows are zeros (its page is never
+  // read), so the products over them are exact zeros
+  {
+    const int U = QW / 8;
+    for (int x = tid; x < (TH + MMA_R) * U; x += kThreads) {
+      const int r = x / U, e = (x % U) * 8;
+      if (r < TH) {
+        const size_t hq = head0 + r;
+        cp_async16(qs + (size_t)r * KS + e,
+                   e < D ? q + hq * D + e : q_extra + hq * De + (e - D));
+      } else {
+        const int rr = r - TH, bb = sblk[rr / page];
+        bf16* dst = ks + (size_t)rr * KS + e;
+        if (bb < 0) {
+          *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+          continue;
+        }
+        const size_t row = ((size_t)bb * page + rr % page) * Hkv + h;
+        cp_async16(dst,
+                   e < D ? k + row * D + e : k_extra + row * De + (e - D));
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int r = tid; r < MMA_R; r += kThreads) {
+    const int bb = sblk[r / page];
+    const int p = bb >= 0 ? pos[(size_t)bb * page + r % page] : -1;
+    ok[r] = (p >= 0) && (p <= qp) && (window <= 0 || p > qp - window);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // scores S (this warp's 16 heads x 64 rows) = [q | q_extra] . [K |
+  // K_extra]^T on the tensor cores, (D + De) / 16 steps, then times scale,
+  // softcap and mask.  Lane (g, c4) holds heads g and g + 8 of the warp,
+  // rows 8 nt + 2 c4 + {0, 1} of each of the 8 row tiles
+  const int g = lane >> 2, c4 = lane & 3;
+  float s[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[nt][j] = 0.f;
+  {
+    const bf16* qa =
+        qs + (size_t)(warp * 16 + (lane & 15)) * KS + (lane >> 4) * 8;
+    const bf16* kb = ks + (size_t)((lane >> 4) * 8 + (lane & 7)) * KS +
+                     ((lane >> 3) & 1) * 8;
+#pragma unroll 2
+    for (int kk = 0; kk < QW / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, qa + kk * 16);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bf[4];
+        ldsm_x4(bf, kb + (size_t)np * 16 * KS + kk * 16);
+        mma_bf16(s[2 * np], a, bf[0], bf[1]);
+        mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
+      }
+    }
+  }
+  float m0 = kNegInf, m1 = kNegInf;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const bool live = ok[nt * 8 + 2 * c4 + j];
+      float y0 = s[nt][j] * scale, y1 = s[nt][2 + j] * scale;
+      if (softcap > 0.f) {
+        y0 = softcap * tanhf(y0 / softcap);
+        y1 = softcap * tanhf(y1 / softcap);
+      }
+      s[nt][j] = live ? y0 : kNegInf;
+      s[nt][2 + j] = live ? y1 : kNegInf;
+      m0 = fmaxf(m0, s[nt][j]);
+      m1 = fmaxf(m1, s[nt][2 + j]);
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+  }
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const bool live = ok[nt * 8 + 2 * c4 + j];
+      const float p0 = live ? expf(s[nt][j] - m0) : 0.f;
+      const float p1 = live ? expf(s[nt][2 + j] - m1) : 0.f;
+      s[nt][j] = p0;
+      s[nt][2 + j] = p1;
+      l0 += p0;
+      l1 += p1;
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  if (c4 == 0) {
+    my_part[PM + warp * 16 + g] = m0;
+    my_part[PM + warp * 16 + g + 8] = m1;
+    my_part[PL + warp * 16 + g] = l0;
+    my_part[PL + warp * 16 + g + 8] = l1;
+  }
+
+  // acc_s = P . V on the tensor cores: P (bf16) straight from the score
+  // registers as the A operand (two row tiles make one 16-row step, one
+  // page), V = the staged K rows' first Dv columns by transposed ldmatrix,
+  // 128 columns of V at a time; a -1 column's page is skipped
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  }
+  const bf16* vb = ks + (size_t)(lane & 15) * KS + (lane >> 4) * 8;
+  for (int n0 = 0; n0 < Dv; n0 += 128) {
+    float acc[16][4];
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[nt][j] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (sblk[kk] < 0) continue;
+#pragma unroll
+      for (int np = 0; np < 8; ++np) {
+        uint32_t bf[4];
+        ldsm_x4_t(bf, vb + (size_t)kk * 16 * KS + n0 + np * 16);
+        mma_bf16(acc[2 * np], pa[kk], bf[0], bf[1]);
+        mma_bf16(acc[2 * np + 1], pa[kk], bf[2], bf[3]);
+      }
+    }
+    float* r0 = my_part + (size_t)(warp * 16 + g) * Dv + n0 + 2 * c4;
+    float* r1 = r0 + (size_t)8 * Dv;
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      *reinterpret_cast<float2*>(r0 + nt * 8) =
+          make_float2(acc[nt][0], acc[nt][1]);
+      *reinterpret_cast<float2*>(r1 + nt * 8) =
+          make_float2(acc[nt][2], acc[nt][3]);
+    }
+  }
+}
+
+// The merge of the head-tiled instances, launched after their split kernel:
+// a block per (slot, kv head, query head), a thread per 4 output columns.
+// The live splits are taken MERGE_CHUNK at a time in split order, each
+// chunk in the two-pass form against the running max (M = max m_s, the
+// sums rescaled by e^(M_old - M)): with up to 128 columns, one chunk, it is
+// M = max m_s, l = sum l_s e^(m_s - M), o = sum acc_s e^(m_s - M) / max(l,
+// 1e-30) exactly.  A live split whose rows are all masked has l_s = 0 and
+// acc_s = 0 and adds exactly 0; an idle slot, or a row with no column,
+// outputs exact zeros.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) paged_merge_kernel(
+    const float* __restrict__ part, const int32_t* __restrict__ table,
+    const int32_t* __restrict__ q_pos, T* __restrict__ out, int Hkv, int G,
+    int TH, int Dv, int n_cols, int num_blocks) {
+  __shared__ int lst[MERGE_CHUNK];
+  __shared__ int n_live;
+  const int hq = blockIdx.x;                 // (slot, kv head, head)
+  const int bh = hq / G, gh = hq % G;
+  const int b = bh / Hkv;
+  const int n_tiles = (G + TH - 1) / TH;
+  const int ct = bh * n_tiles + gh / TH, gi = gh % TH;
+  const int n_splits = (n_cols + PAGES_PER_SPLIT - 1) / PAGES_PER_SPLIT;
+  const size_t part_stride = part_floats(TH, Dv);
+  const float* pb = part + (size_t)ct * n_splits * part_stride;
+  const int PM = TH * Dv + gi, PL = TH * Dv + TH + gi;
+  const int32_t* trow = table + (size_t)b * n_cols;
+  const bool idle = q_pos[b] < 0;
+  const int tid = threadIdx.x;
+  T* o = out + (size_t)hq * Dv;
+  for (int x0 = 0; x0 < Dv / 4; x0 += kThreads) {  // every thread: barriers
+    const int x = x0 + tid;
+    const bool mine = x < Dv / 4;
+    float M = kNegInf, l = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = 0; s0 < n_splits && !idle; s0 += MERGE_CHUNK) {
+      __syncthreads();
+      if (tid < 32) {
+        const int n = list_live(trow, n_cols, num_blocks, s0, lst);
+        if (tid == 0) n_live = n;
+      }
+      __syncthreads();
+      const int n = n_live;
+      if (n == 0) continue;
+      float Mn = M;
+      for (int j = 0; j < n; ++j)
+        Mn = fmaxf(Mn, pb[(size_t)lst[j] * part_stride + PM]);
+      const float alpha = expf(M - Mn);
+      l *= alpha;
+      a.x *= alpha, a.y *= alpha, a.z *= alpha, a.w *= alpha;
+#pragma unroll 4
+      for (int j = 0; j < n && mine; ++j) {
+        const float* ps = pb + (size_t)lst[j] * part_stride;
+        const float w = expf(ps[PM] - Mn);
+        const float4 y =
+            *reinterpret_cast<const float4*>(ps + (size_t)gi * Dv + 4 * x);
+        l += ps[PL] * w;
+        a.x += y.x * w, a.y += y.y * w, a.z += y.z * w, a.w += y.w * w;
+      }
+      M = Mn;
+    }
+    if (!mine) continue;
+    const float inv = fmaxf(l, 1e-30f);
+    o[4 * x] = from_f32<T>(a.x / inv);
+    o[4 * x + 1] = from_f32<T>(a.y / inv);
+    o[4 * x + 2] = from_f32<T>(a.z / inv);
+    o[4 * x + 3] = from_f32<T>(a.w / inv);
+  }
+}
+
+template <typename T>
+int launch_merge(const void* part, const void* table, const void* q_pos,
+                 void* out, int B, int Hkv, int G, int TH, int Dv, int n_cols,
+                 int num_blocks, cudaStream_t stream) {
+  paged_merge_kernel<T><<<B * Hkv * G, kThreads, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<const int32_t*>(table),
+      static_cast<const int32_t*>(q_pos), static_cast<T*>(out), Hkv, G, TH,
+      Dv, n_cols, num_blocks);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool KV_SAME>
+int launch_tiled(const void* q, const void* k, const void* v, const void* pos,
+                 const void* table, const void* q_pos, const void* q_extra,
+                 const void* k_extra, void* out, void* part, int B, int Hkv,
+                 int G, int D, int Dv, int De, int page, int n_cols,
+                 int num_blocks, float scale, int window, float softcap,
+                 cudaStream_t stream) {
+  const size_t smem =
+      TiledSmem(D, Dv, De, page, (int)sizeof(T), KV_SAME).total;
+  auto kernel = paged_tiled_kernel<T, KV_SAME>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int n_tiles = (G + TILE_G - 1) / TILE_G;
+  const int n_splits = (n_cols + PAGES_PER_SPLIT - 1) / PAGES_PER_SPLIT;
+  kernel<<<dim3(B * Hkv * n_tiles, n_splits), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int32_t*>(pos),
+      static_cast<const int32_t*>(table), static_cast<const int32_t*>(q_pos),
+      static_cast<const T*>(q_extra), static_cast<const T*>(k_extra),
+      static_cast<float*>(part), Hkv, G, D, Dv, De, page, n_cols, num_blocks,
+      scale, window, softcap);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  return launch_merge<T>(part, table, q_pos, out, B, Hkv, G, TILE_G, Dv,
+                         n_cols, num_blocks, stream);
+}
+
+template <typename T>
+int launch_tiled_any(bool kv_same, const void* q, const void* k,
+                     const void* v, const void* pos, const void* table,
+                     const void* q_pos, const void* q_extra,
+                     const void* k_extra, void* out, void* part, int B,
+                     int Hkv, int G, int D, int Dv, int De, int page,
+                     int n_cols, int num_blocks, float scale, int window,
+                     float softcap, cudaStream_t s) {
+  if (kv_same)
+    return launch_tiled<T, true>(q, k, v, pos, table, q_pos, q_extra, k_extra,
+                                 out, part, B, Hkv, G, D, Dv, De, page,
+                                 n_cols, num_blocks, scale, window, softcap, s);
+  return launch_tiled<T, false>(q, k, v, pos, table, q_pos, q_extra, k_extra,
+                                out, part, B, Hkv, G, D, Dv, De, page, n_cols,
+                                num_blocks, scale, window, softcap, s);
+}
+
+int launch_mma(const void* q, const void* k, const void* pos,
+               const void* table, const void* q_pos, const void* q_extra,
+               const void* k_extra, void* out, void* part, int B, int Hkv,
+               int G, int D, int Dv, int De, int n_cols, int num_blocks,
+               float scale, int window, float softcap, cudaStream_t stream) {
+  const size_t smem = MmaSmem(D, De).total;
+  auto kernel = paged_mma_kernel<MMA_TH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_splits = (n_cols + PAGES_PER_SPLIT - 1) / PAGES_PER_SPLIT;
+  kernel<<<dim3(B * Hkv * (G / MMA_TH), n_splits), kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const int32_t*>(pos), static_cast<const int32_t*>(table),
+      static_cast<const int32_t*>(q_pos),
+      static_cast<const __nv_bfloat16*>(q_extra),
+      static_cast<const __nv_bfloat16*>(k_extra), static_cast<float*>(part),
+      Hkv, G, D, Dv, De, n_cols, num_blocks, scale, window, softcap);
+  const int e = (int)cudaGetLastError();
+  if (e) return e;
+  return launch_merge<__nv_bfloat16>(part, table, q_pos, out, B, Hkv, G,
+                                     MMA_TH, Dv, n_cols, num_blocks, stream);
+}
+
 }  // namespace
 
 extern "C" {
+
+// Query heads a block of the head-tiled instance takes.
+int paged_attention_tile_heads() { return TILE_G; }
+
+// Query heads and rows a block of the tensor-core instance takes.
+int paged_attention_mma_heads() { return MMA_TH; }
+int paged_attention_mma_rows() { return MMA_R; }
+
+// Bytes of dynamic shared memory one block of the tensor-core instance
+// needs.
+long long paged_attention_mma_smem_bytes(int D, int De) {
+  return (long long)MmaSmem(D, De).total;
+}
+
+// Bytes of dynamic shared memory one block of the head-tiled instance
+// needs (kv_same: V is K and is not staged apart).
+long long paged_attention_tiled_smem_bytes(int D, int Dv, int De, int page,
+                                           int isz, int kv_same) {
+  return (long long)TiledSmem(D, Dv, De, page, isz, kv_same != 0).total;
+}
 
 // Table columns per split (the wrapper sizes the scratch with it).
 int paged_attention_pages_per_split() { return PAGES_PER_SPLIT; }
@@ -727,15 +1422,48 @@ long long paged_attention_smem_bytes(int G, int D, int Dv, int De, int page,
 // paged_attention_part_floats(G, Dv) elements, n_splits = ceil(n_cols /
 // PAGES_PER_SPLIT);
 // counter: B * Hkv ints, zero before the launch and zero again after it.
-// G <= 16.  Returns the cudaError_t of the launch.
+// G <= 16 (instance 0).  instance 1: the CUDA-core head-tiled instance (any
+// G; vec rows only), instance 2: the tensor-core one (bf16, kv_same, page
+// MMA_R / PAGES_PER_SPLIT, G a multiple of MMA_TH, (D + De) % 16 == 0,
+// Dv % 128 == 0, Dv <= D, 16-byte aligned q / q_extra).  Each launches its
+// split kernel and the merge kernel; their scratch is per (slot, kv head,
+// head tile of TILE_G or MMA_TH heads), each split's partial
+// paged_attention_part_floats(heads, Dv) floats, and they take no counter.
+// kv_same: v is k (same pointer and shape), staged once.  Returns the
+// cudaError_t of the launch.
 int paged_attention_fwd(const void* q, const void* k, const void* v,
                         const void* pos, const void* table, const void* q_pos,
                         const void* q_extra, const void* k_extra, void* out,
                         void* part, void* counter, int B, int Hkv, int G,
                         int D, int Dv, int De, int page, int n_cols,
                         int num_blocks, float scale, int window,
-                        float softcap, int dtype, int vec, void* stream) {
+                        float softcap, int dtype, int vec, int instance,
+                        int kv_same, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (instance == 2) {
+    if (dtype != 1 || !vec || !kv_same || page * PAGES_PER_SPLIT != MMA_R ||
+        G % MMA_TH || (D + De) % 16 || Dv % 128 || Dv > D || n_cols < 1)
+      return (int)cudaErrorInvalidValue;
+    return launch_mma(q, k, pos, table, q_pos, q_extra, k_extra, out, part,
+                      B, Hkv, G, D, Dv, De, n_cols, num_blocks, scale, window,
+                      softcap, s);
+  }
+  if (instance == 1) {
+    if (G < 1 || n_cols < 1 || page < 1 || !vec || Dv % 4 ||
+        (kv_same && Dv > D))
+      return (int)cudaErrorInvalidValue;
+    if (dtype == 0)
+      return launch_tiled_any<float>(kv_same != 0, q, k, v, pos, table, q_pos,
+                                     q_extra, k_extra, out, part, B, Hkv, G,
+                                     D, Dv, De, page, n_cols, num_blocks,
+                                     scale, window, softcap, s);
+    if (dtype == 1)
+      return launch_tiled_any<__nv_bfloat16>(
+          kv_same != 0, q, k, v, pos, table, q_pos, q_extra, k_extra, out,
+          part, B, Hkv, G, D, Dv, De, page, n_cols, num_blocks, scale, window,
+          softcap, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (G < 1 || G > MAX_GROUP || n_cols < 1 || page < 1)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)

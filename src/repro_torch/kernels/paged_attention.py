@@ -5,12 +5,22 @@ For tensors on the CPU it runs the plain version
 (``ref.paged_attention_ref``).  For CUDA tensors it checks what the
 kernel takes, allocates the output and the float32 scratch of the
 split-K partials, and launches on PyTorch's current stream — or raises;
-nothing falls back.  ``paged_attention_fwd.launches`` counts launches
-(one per call: the merge of the partials runs in the same launch), so a
-run can show that its decode ticks went through the kernel.
+nothing falls back.  ``paged_attention_fwd.launches`` counts calls that
+launched the kernel (one each: the split kernel merges its partials in
+the same launch; a head-tiled instance launches its split kernel and the
+merge kernel), so a run can show that its decode ticks went through it.
 
-The kernel's last block per (slot, kv head) is found with a counter that
-the block resets; the counters live in one zeroed int32 buffer per
+Query groups of up to ``MAX_GROUP`` heads with head dims up to
+``MAX_HEAD_DIM`` run the split kernel; larger ones (MLA's absorbed decode:
+G = 128 heads over one latent head of 512 plus a 64-wide rope term) run
+a head-tiled instance (``instance`` says which): in bf16, with one tensor
+passed as both k and v (MLA's latent pool) and 16-row pages, the
+tensor-core instance, ``MMA_HEADS`` query heads a block; otherwise the
+CUDA-core one, ``TILE_HEADS`` a block.  Both stage a row of k once when
+it is also v.
+
+The split kernel's last block per (slot, kv head) is found with a counter
+that the block resets; the counters live in one zeroed int32 buffer per
 (device, stream), kept here and grown as B * Hkv grows.
 """
 from __future__ import annotations
@@ -23,8 +33,11 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import PAGES_PER_SPLIT, paged_attention_ref
 
-MAX_HEAD_DIM = 256
-MAX_GROUP = 16
+MAX_HEAD_DIM = 256                # of the split kernel
+MAX_GROUP = 16                    # of the split kernel
+TILE_HEADS = 16                   # query heads a block of the tiled instance
+MMA_HEADS, MMA_ROWS = 64, 64      # heads and rows a block of the mma one
+_INSTANCES = {"split": 0, "tiled": 1, "mma": 2}
 MAX_SMEM_BYTES = 232_448          # 227 KB: what one Hopper block can use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -34,7 +47,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_repro_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.paged_attention_fwd.argtypes = ([p] * 11 + [i] * 9
-                                            + [f, i, f, i, i, p])
+                                            + [f, i, f, i, i, i, i, p])
         lib.paged_attention_fwd.restype = ctypes.c_int
         lib.paged_attention_smem_bytes.argtypes = [i] * 6
         lib.paged_attention_smem_bytes.restype = ctypes.c_longlong
@@ -42,19 +55,55 @@ def _lib() -> ctypes.CDLL:
         lib.paged_attention_pages_per_split.restype = ctypes.c_int
         lib.paged_attention_part_floats.argtypes = [i, i]
         lib.paged_attention_part_floats.restype = ctypes.c_longlong
+        lib.paged_attention_tiled_smem_bytes.argtypes = [i] * 6
+        lib.paged_attention_tiled_smem_bytes.restype = ctypes.c_longlong
+        lib.paged_attention_mma_smem_bytes.argtypes = [i] * 2
+        lib.paged_attention_mma_smem_bytes.restype = ctypes.c_longlong
+        for fn in ("tile_heads", "mma_heads", "mma_rows"):
+            getattr(lib, f"paged_attention_{fn}").argtypes = []
+            getattr(lib, f"paged_attention_{fn}").restype = ctypes.c_int
         if lib.paged_attention_pages_per_split() != PAGES_PER_SPLIT:
             raise RuntimeError("paged_attention.cu and ref.PAGES_PER_SPLIT "
                                "disagree on the columns per split")
+        if (lib.paged_attention_tile_heads(), lib.paged_attention_mma_heads(),
+                lib.paged_attention_mma_rows()) != (TILE_HEADS, MMA_HEADS,
+                                                    MMA_ROWS):
+            raise RuntimeError("paged_attention.cu and the wrapper disagree "
+                               "on the head tiles")
         lib._repro_typed = True
     return lib
 
 
-def smem_bytes(G: int, D: int, Dv: int, De: int, page: int,
-               itemsize: int) -> int:
-    """Dynamic shared memory one kernel block needs (from the kernel's
-    own C function, so the check and the launch share one formula)."""
+def smem_bytes(inst: str, G: int, D: int, Dv: int, De: int, page: int,
+               itemsize: int, kv_same: bool = False) -> int:
+    """Dynamic shared memory one block of instance ``inst`` needs (from
+    the kernel's own C functions, so the check and the launch share one
+    formula)."""
+    if inst == "mma":
+        return int(_lib().paged_attention_mma_smem_bytes(D, De))
+    if inst == "tiled":
+        return int(_lib().paged_attention_tiled_smem_bytes(
+            D, Dv, De, page, itemsize, int(kv_same)))
     return int(_lib().paged_attention_smem_bytes(G, D, Dv, De, page,
                                                  itemsize))
+
+
+def instance(G: int, D: int, Dv: int, De: int, page: int,
+             dtype: torch.dtype, kv_same: bool, aligned: bool = True) -> str:
+    """The kernel instance a call runs: "split" (G <= ``MAX_GROUP``, head
+    dims <= ``MAX_HEAD_DIM``), else a head-tiled one: "mma" on the tensor
+    cores where its shape allows (bf16; k is v; 16-row pages; G a
+    multiple of ``MMA_HEADS``; D + De a multiple of 16; Dv a multiple of
+    128 and at most D; 16-byte aligned q and q_extra), else "tiled" on
+    the CUDA cores (float32 among them: the tensor cores would round
+    it)."""
+    if G <= MAX_GROUP and max(D, Dv, De) <= MAX_HEAD_DIM:
+        return "split"
+    if (dtype == torch.bfloat16 and kv_same and aligned
+            and page * PAGES_PER_SPLIT == MMA_ROWS and G % MMA_HEADS == 0
+            and (D + De) % 16 == 0 and Dv % 128 == 0 and Dv <= D):
+        return "mma"
+    return "tiled"
 
 
 _counters = {}   # (device index, stream) -> zeroed int32 counters
@@ -114,7 +163,8 @@ def paged_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B,1,Hq,D); k (N,page,Hkv,D); v (N,page,Hkv,Dv); pos (N,page)
     int32; table (B,n_cols) int32; q_pos (B,1) int32; optional q_extra
     (B,1,Hq,De) / k_extra (N,page,Hkv,De).  Returns (B,1,Hq,Dv) in
-    q.dtype.  See ``ref.paged_attention_ref`` for the semantics."""
+    q.dtype.  See ``ref.paged_attention_ref`` for the semantics;
+    ``instance`` says which instance of the kernel runs."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -128,29 +178,37 @@ def paged_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     N, page, Hkv, Dv = v.shape
     G = Hq // Hkv
     De = 0 if q_extra is None else q_extra.shape[-1]
-    if max(D, Dv, De) > MAX_HEAD_DIM or G > MAX_GROUP:
-        raise ValueError(f"paged decode kernel takes head dims <= "
-                         f"{MAX_HEAD_DIM} and G <= {MAX_GROUP}: D={D} "
-                         f"Dv={Dv} De={De} G={G}")
-    smem = smem_bytes(G, D, Dv, De, page, q.element_size())
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"paged decode kernel needs {smem} bytes of shared "
-                         f"memory per block (> {MAX_SMEM_BYTES}): G={G} "
-                         f"D={D} Dv={Dv} De={De} page={page}")
     # 16-byte loads when every K/V row starts on a 16-byte boundary
     per16 = 16 // q.element_size()
     pools = (k, v) + ((k_extra,) if De else ())
     vec = (all(dim % per16 == 0 for dim in (D, Dv, De))
            and all(t.data_ptr() % 16 == 0 for t in pools))
+    kv_same = (v.data_ptr() == k.data_ptr() and v.shape == k.shape
+               and v.stride() == k.stride())
+    aligned = all(t.data_ptr() % 16 == 0
+                  for t in (q,) + ((q_extra,) if De else ()))
+    chosen = instance(G, D, Dv, De, page, q.dtype, kv_same, aligned)
+    if chosen != "split" and not vec:
+        raise ValueError(f"the head-tiled paged decode kernel takes head "
+                         f"dims of whole 16-byte units and 16-byte aligned "
+                         f"pools: D={D} Dv={Dv} De={De} {q.dtype}")
+    smem = smem_bytes(chosen, G, D, Dv, De, page, q.element_size(), kv_same)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"paged decode kernel needs {smem} bytes of shared "
+                         f"memory per block (> {MAX_SMEM_BYTES}): G={G} "
+                         f"D={D} Dv={Dv} De={De} page={page}")
     n_cols = table.shape[1]
     n_splits = -(-n_cols // PAGES_PER_SPLIT)
     if n_splits > 65535:
         raise ValueError(f"paged decode kernel takes at most "
                          f"{65535 * PAGES_PER_SPLIT} table columns: {n_cols}")
+    # the head-tiled instances keep partials per head tile
+    heads = {"split": G, "tiled": TILE_HEADS, "mma": MMA_HEADS}[chosen]
+    groups = B * Hkv * -(-G // heads)
     out = torch.empty((B, 1, Hq, Dv), dtype=q.dtype, device=q.device)
-    part = torch.empty(B * Hkv * n_splits
-                       * int(_lib().paged_attention_part_floats(G, Dv)),
-                       dtype=torch.float32, device=q.device)
+    part_floats = int(_lib().paged_attention_part_floats(heads, Dv))
+    part = torch.empty(groups * n_splits * part_floats, dtype=torch.float32,
+                       device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         counter = _counters_for(q.device, stream, B * Hkv)
@@ -161,7 +219,8 @@ def paged_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k_extra.data_ptr() if De else None, out.data_ptr(),
             part.data_ptr(), counter.data_ptr(),
             B, Hkv, G, D, Dv, De, page, n_cols, N, float(scale),
-            int(window), float(softcap), _DTYPES[q.dtype], int(vec), stream)
+            int(window), float(softcap), _DTYPES[q.dtype], int(vec),
+            _INSTANCES[chosen], int(kv_same), stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_fwd: CUDA launch failed "
                            f"(cudaError_t {err})")

@@ -15,6 +15,11 @@ RWKV recurrences in prefill and decode); ``--temperature`` /
     python -m repro_torch.launch.serve --device cpu --arch rwkv6-7b --kernel
     python -m repro_torch.launch.serve --device cpu \
         --arch jamba-1.5-large-398b --kernel
+    python -m repro_torch.launch.serve --device cpu \
+        --arch deepseek-v3-671b --kernel     # MLA absorbed decode
+
+Serving takes tokens only, as the JAX engine does: the frontend-stub
+models (llava-next-mistral-7b, musicgen-medium) serve their token path.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
-"""Decoder model of the port: full-attention, Mamba or RWKV6 layers with
-SwiGLU or mixture-of-experts FFNs, built from a ``ModelConfig`` like
-``repro.models.transformer``.
+"""Decoder model of the port: full-attention (GQA or MLA), Mamba or RWKV6
+layers with SwiGLU or mixture-of-experts FFNs, the embedding frontend
+stub and the multi-token-prediction head, built from a ``ModelConfig``
+like ``repro.models.transformer``.
 
 Parameters and decode caches are nested dicts under the JAX package's
 key names.  Stack leaves carry a leading ``n_periods`` axis; ``forward``
@@ -19,7 +20,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.models import ssm
+from repro_torch.models import mla, ssm
 from repro_torch.models.config import (ATTN, DENSE, MAMBA, MOE, RWKV,
                                        ModelConfig)
 from repro_torch.models.layers import (attn_apply, attn_init, cache_init,
@@ -38,10 +39,6 @@ def _check_layer(spec) -> None:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    if cfg.use_mla or cfg.ext_embed_dim or cfg.mtp_depth:
-        raise NotImplementedError(
-            f"repro_torch: {cfg.name} needs MLA / modality frontends / MTP, "
-            f"which are not ported yet")
     for spec in tuple(cfg.prefix_layers) + tuple(cfg.period):
         _check_layer(spec)
 
@@ -53,8 +50,8 @@ def check_ported(cfg: ModelConfig) -> None:
 def layer_init(gen: torch.Generator, spec, cfg: ModelConfig, lead=(),
                device=None) -> dict:
     _check_layer(spec)
-    mixer_init = {ATTN: attn_init, MAMBA: ssm.mamba_init,
-                  RWKV: ssm.rwkv_init}[spec.mixer]
+    mixer_init = {ATTN: mla.mla_init if cfg.use_mla else attn_init,
+                  MAMBA: ssm.mamba_init, RWKV: ssm.rwkv_init}[spec.mixer]
     mixer = mixer_init(gen, cfg, lead, device)      # drawn before the FFN
     ffn = (moe_init(gen, cfg, lead, device) if spec.ffn == MOE
            else ffn_init(gen, cfg, lead=lead, device=device))
@@ -70,12 +67,17 @@ def layer_cache_init(spec, cfg: ModelConfig, batch: int, cache_len: int,
     """Dense per-slot KV cache, or (``paged=True``) a block pool of
     ``num_blocks`` pages shared through the block table.  Mamba and RWKV
     state is per slot either way (a recurrent carry has no sequence axis
-    to page)."""
+    to page).  MLA layers keep the latent cache ("ckv", "krope", "pos")."""
     _check_layer(spec)
     if spec.mixer == MAMBA:
         return ssm.mamba_cache_init(batch, cfg, dtype, lead, device)
     if spec.mixer == RWKV:
         return ssm.rwkv_cache_init(batch, cfg, dtype, lead, device)
+    if cfg.use_mla:
+        if paged:
+            return mla.mla_paged_cache_init(num_blocks, page_size, cfg,
+                                            dtype, lead, device)
+        return mla.mla_cache_init(batch, cache_len, cfg, dtype, lead, device)
     if paged:
         return paged_cache_init(num_blocks, page_size, cfg.n_kv_heads,
                                 cfg.head_dim, dtype, lead, device)
@@ -85,10 +87,12 @@ def layer_cache_init(spec, cfg: ModelConfig, batch: int, cache_len: int,
 
 def layer_apply(lp: dict, spec, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[dict], *,
-                kv_chunk: int = 1024, masked_slots: bool = False,
-                block_table=None, use_kernel: bool = False):
+                decode: bool = False, kv_chunk: int = 1024,
+                masked_slots: bool = False, block_table=None,
+                use_kernel: bool = False):
     """Pre-norm residual block: x + mixer(norm1(x)), then + ffn(norm2(x)).
     Returns (x, cache, aux_loss); the cache is written in place.
+    ``decode``: single-token cache paths (MLA's absorbed attention).
 
     ``masked_slots``: rows whose positions are all < 0 (idle serving
     slots) keep their cache bit for bit — attention caches entry-wise
@@ -105,6 +109,12 @@ def layer_apply(lp: dict, spec, cfg: ModelConfig, x: torch.Tensor,
         apply = ssm.mamba_apply if spec.mixer == MAMBA else ssm.rwkv_apply
         h, cache = apply(lp["mixer"], h, cfg, cache=cache, valid=valid,
                          use_kernel=use_kernel)
+    elif cfg.use_mla:
+        h, cache = mla.mla_apply(lp["mixer"], h, cfg, positions=positions,
+                                 cache=cache, decode=decode,
+                                 kv_chunk=kv_chunk,
+                                 masked_slots=masked_slots,
+                                 table=block_table, use_kernel=use_kernel)
     else:
         h, cache = attn_apply(lp["mixer"], h, cfg, positions=positions,
                               cache=cache, kv_chunk=kv_chunk,
@@ -140,6 +150,9 @@ def init_params(seed: int, cfg: ModelConfig, *,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                        device=dev)
+    if cfg.ext_embed_dim:
+        params["ext_proj"] = dense_init(gen, cfg.ext_embed_dim, cfg.d_model,
+                                        device=dev)
     if cfg.prefix_layers:
         params["prefix"] = tuple(layer_init(gen, spec, cfg, device=dev)
                                  for spec in cfg.prefix_layers)
@@ -147,6 +160,13 @@ def init_params(seed: int, cfg: ModelConfig, *,
         params["stack"] = tuple(
             layer_init(gen, spec, cfg, lead=(stack.n_periods,), device=dev)
             for spec in stack.period)
+    if cfg.mtp_depth:
+        params["mtp"] = {
+            "norm_h": rmsnorm_init(cfg.d_model, device=dev),
+            "norm_e": rmsnorm_init(cfg.d_model, device=dev),
+            "proj": dense_init(gen, 2 * cfg.d_model, cfg.d_model, device=dev),
+            "layer": layer_init(gen, cfg.period[-1], cfg, device=dev),
+        }
     return params
 
 
@@ -183,8 +203,15 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 # ---------------------------------------------------------------------------
 
 def embed_inputs(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """batch: {"tokens": (B,S) int}.  (Embedding frontends are not
-    ported.)"""
+    """batch: {"tokens": (B,S) int} and / or {"embeds": (B,S,ext_dim)}:
+    the frontend stub's precomputed embeddings go through ``ext_proj`` in
+    bf16, plus the token embeddings when both are given."""
+    if "embeds" in batch:
+        x = (batch["embeds"].to(torch.bfloat16)
+             @ params["ext_proj"].to(torch.bfloat16))
+        if "tokens" in batch:
+            x = x + params["embed"][batch["tokens"].long()]
+        return x
     return params["embed"][batch["tokens"].long()]
 
 
@@ -229,11 +256,12 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             remat: bool = False, kv_chunk: int = 1024,
             compute_logits: bool = True, masked_slots: bool = False,
             remat_policy: str = "full", block_table=None,
-            use_kernel: bool = False):
+            use_kernel: bool = False, decode: bool = False):
     """Run the decoder.  Returns (logits_or_hidden, aux_loss, caches);
     ``caches`` is updated in place and returned.  ``positions`` defaults
-    to arange(S) per row.  ``block_table`` marks ``caches`` as paged
-    pools; ``use_kernel=True`` runs each mixer's Hopper kernel where the
+    to arange(S) per row.  ``decode=True`` selects the single-token cache
+    paths (MLA's absorbed attention).  ``block_table`` marks ``caches`` as
+    paged pools; ``use_kernel=True`` runs each mixer's Hopper kernel where the
     port has one (paged single-token decode attention, self-attention
     with no cache, the Mamba and RWKV recurrences).  ``remat`` recomputes each
     period's activations in the backward pass (see ``_remat_wrap``)."""
@@ -247,7 +275,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             "repro_torch: with no cache, use_kernel runs the flash kernel, "
             "which masks by index: leave positions at its default arange(S)")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    kw = dict(kv_chunk=kv_chunk, masked_slots=masked_slots,
+    kw = dict(decode=decode, kv_chunk=kv_chunk, masked_slots=masked_slots,
               block_table=block_table, use_kernel=use_kernel)
     for i, spec in enumerate(cfg.prefix_layers):
         c = caches["prefix"][i] if caches is not None else None
@@ -272,6 +300,33 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     out = unembed(params, cfg, h) if compute_logits else h
     return out, aux, caches
+
+
+# ---------------------------------------------------------------------------
+# Multi-token prediction head (DeepSeek-V3 MTP, depth 1; training only)
+# ---------------------------------------------------------------------------
+
+def mtp_hidden(params: dict, cfg: ModelConfig, h: torch.Tensor,
+               next_tokens: torch.Tensor, positions: torch.Tensor, *,
+               use_kernel: bool = False):
+    """DeepSeek-style MTP module: predict token t+2 from hidden h_t fused
+    with the embedding of token t+1.  h: (B,S,d) final hidden (pre-head);
+    next_tokens: (B,S) = token t+1.  Returns (hidden for the shared head,
+    aux loss)."""
+    mp = params["mtp"]
+    e = params["embed"][next_tokens.long()]
+    z = torch.cat([rmsnorm(h, mp["norm_h"], cfg.norm_eps),
+                   rmsnorm(e, mp["norm_e"], cfg.norm_eps)], dim=-1)
+    z = z @ mp["proj"].to(z.dtype)
+    z, _, a = layer_apply(mp["layer"], cfg.period[-1], cfg, z, positions,
+                          None, use_kernel=use_kernel)
+    return rmsnorm(z, params["final_norm"], cfg.norm_eps), a
+
+
+def mtp_logits(params: dict, cfg: ModelConfig, h: torch.Tensor,
+               next_tokens: torch.Tensor, positions: torch.Tensor):
+    hN, a = mtp_hidden(params, cfg, h, next_tokens, positions)
+    return unembed(params, cfg, hN), a
 
 
 def trainable(params: dict) -> dict:

@@ -1,8 +1,8 @@
 """Serving engine of the port: chunked-prefill continuous batching over a
 dense or paged (block-table) KV cache, with content-addressed prefix
 sharing and copy-on-write pages — the counterpart of
-``repro.serve.engine`` for full-attention, RWKV6 and Mamba-hybrid
-models, with dense or MoE FFNs.
+``repro.serve.engine`` for full-attention (GQA or MLA), RWKV6 and
+Mamba-hybrid models, with dense or MoE FFNs.
 
 One step function (``make_engine_step``) serves both chunked prefill
 (S = chunk) and the batched decode tick (S = 1).  Only the last position
@@ -33,9 +33,10 @@ from repro_torch.models.layers import NEG_INF
 from repro_torch.models.transformer import (check_ported, forward, init_cache,
                                             unembed)
 
-# pool leaves of paged attention caches (block-indexed, shared across
-# slots); everything else in a cache tree is per-slot state
-POOL_LEAVES = ("k", "v", "pos")
+# pool leaves of paged attention-family caches (block-indexed, shared
+# across slots; MLA's latent pools are "ckv" / "krope"); everything else
+# in a cache tree is per-slot state
+POOL_LEAVES = ("k", "v", "pos", "ckv", "krope")
 
 
 def topp_sample(uniform: torch.Tensor, logits: torch.Tensor,
@@ -113,6 +114,7 @@ def make_engine_step(cfg: ModelConfig, *, kv_chunk: int = 1024,
             seen[rows[ok], tokens[ok].long()] = True
         h, _, caches = forward(params, cfg, {"tokens": tokens},
                                caches=caches, positions=positions,
+                               decode=tokens.shape[1] == 1,
                                kv_chunk=kv_chunk, compute_logits=False,
                                masked_slots=True,
                                block_table=table if paged else None,
@@ -154,7 +156,8 @@ def generate(params: dict, cfg: ModelConfig, prompts, *, max_new: int,
             break
         posd = torch.full((B, 1), S0 + t, dtype=torch.int32, device=dev)
         logits, _, caches = forward(params, cfg, {"tokens": tok},
-                                    caches=caches, positions=posd)
+                                    caches=caches, positions=posd,
+                                    decode=True)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
     return torch.cat(out, dim=1)
 

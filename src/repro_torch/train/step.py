@@ -1,6 +1,7 @@
 """Train-step builder: loss -> grads -> optimizer, with activation
-recomputation over layer periods, token-chunked cross entropy and
-microbatch gradient accumulation — the counterpart of
+recomputation over layer periods, token-chunked cross entropy, the
+optional MTP auxiliary loss (DeepSeek-V3) and microbatch gradient
+accumulation — the counterpart of
 ``repro.train.step``.  PyTorch runs eagerly, so the builders return
 plain functions (the JAX version's are meant for ``jax.jit``).
 """
@@ -11,7 +12,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import forward
+from repro_torch.models.transformer import forward, mtp_hidden
 from repro_torch.train.loss import cross_entropy_chunked
 from repro_torch.tree import leaves, unflatten
 
@@ -20,25 +21,39 @@ def _head_matrix(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _check_mtp(cfg: ModelConfig) -> None:
-    if cfg.mtp_depth:
-        raise NotImplementedError(
-            "repro_torch: multi-token prediction (MTP) training is not "
-            "ported yet")
-
-
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-            remat: bool = True, ce_chunk: int = 512,
+            remat: bool = True, mtp_coef: float = 0.3, ce_chunk: int = 512,
             remat_policy: str = "full", use_kernel: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(loss, {"ce", "aux", "acc"}) of one batch {"tokens", "labels"}.
+    """(loss, {"ce", "aux", "acc"[, "ce_mtp"]}) of one batch {"tokens",
+    "labels"} (plus "embeds" for frontend-stub models).  With an MTP head
+    (``cfg.mtp_depth`` and ``params["mtp"]``) and tokens in the batch, the
+    depth-1 MTP loss — token t+2 from h_t and token t+1 (== labels_t) —
+    adds ``mtp_coef`` x its cross entropy and its aux loss.
     ``use_kernel`` runs the attention through the flash kernel."""
-    _check_mtp(cfg)
     h, aux, _ = forward(params, cfg, batch, remat=remat, compute_logits=False,
                         remat_policy=remat_policy, use_kernel=use_kernel)
-    ce, acc = cross_entropy_chunked(h, _head_matrix(params, cfg),
-                                    batch["labels"], chunk=ce_chunk)
-    return ce + aux, {"ce": ce, "aux": aux, "acc": acc}
+    head = _head_matrix(params, cfg)
+    ce, acc = cross_entropy_chunked(h, head, batch["labels"], chunk=ce_chunk)
+    loss = ce + aux
+    metrics = {"ce": ce, "aux": aux, "acc": acc}
+    if _has_mtp(params, cfg) and "tokens" in batch:
+        B, S = batch["labels"].shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=h.device)[None].expand(B, S)
+        h_mtp, aux_m = mtp_hidden(params, cfg, h, batch["labels"], positions,
+                                  use_kernel=use_kernel)
+        lbl_mtp = torch.cat([batch["labels"][:, 1:],
+                             torch.full_like(batch["labels"][:, :1], -1)],
+                            dim=1)
+        ce_m, _ = cross_entropy_chunked(h_mtp, head, lbl_mtp, chunk=ce_chunk)
+        loss = loss + mtp_coef * ce_m + aux_m
+        metrics["ce_mtp"] = ce_m
+    return loss, metrics
+
+
+def _has_mtp(params, cfg: ModelConfig) -> bool:
+    return bool(cfg.mtp_depth) and "mtp" in params
 
 
 def grads_of(params, loss: torch.Tensor):
@@ -48,8 +63,8 @@ def grads_of(params, loss: torch.Tensor):
 
 
 def make_train_step(cfg: ModelConfig, optimizer, *, microbatches: int = 1,
-                    remat: bool = True, ce_chunk: int = 512,
-                    remat_policy: str = "full",
+                    remat: bool = True, mtp_coef: float = 0.3,
+                    ce_chunk: int = 512, remat_policy: str = "full",
                     use_kernel: bool = False) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``; the optimizer updates params and state in
@@ -57,11 +72,10 @@ def make_train_step(cfg: ModelConfig, optimizer, *, microbatches: int = 1,
     slices in float32, averaged, as the JAX version's scan does;
     ``remat_policy``: full | none (dots / dots_no_batch are not ported).
     The params must require gradients (``transformer.trainable``)."""
-    _check_mtp(cfg)
-
     def grad_fn(params, batch):
         loss, metrics = loss_fn(params, cfg, batch, remat=remat,
-                                ce_chunk=ce_chunk, remat_policy=remat_policy,
+                                mtp_coef=mtp_coef, ce_chunk=ce_chunk,
+                                remat_policy=remat_policy,
                                 use_kernel=use_kernel)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             grads_of(params, loss)
@@ -77,9 +91,11 @@ def make_train_step(cfg: ModelConfig, optimizer, *, microbatches: int = 1,
             n = B // microbatches
             grads = [torch.zeros(p.shape, dtype=torch.float32,
                                  device=p.device) for p in leaves(params)]
+            names = ("ce", "aux", "acc") + (
+                ("ce_mtp",) if _has_mtp(params, cfg) else ())
             metrics = {k: torch.zeros((), dtype=torch.float32,
                                       device=batch["labels"].device)
-                       for k in ("ce", "aux", "acc")}
+                       for k in names}
             loss = torch.zeros((), dtype=torch.float32,
                                device=batch["labels"].device)
             for i in range(microbatches):

@@ -7,8 +7,11 @@ version; the Hopper kernel itself is held against that plain version on
 the card by ``chip_smoke.py``.  ``paged_attention_split_ref`` is the
 plain mirror of the kernel's split-K algorithm (fixed column splits,
 ordered merge); it is held against the sequential plain version, the
-JAX kernel, and its own bitwise invariants.  Inputs are drawn with numpy from a seed
-and handed to both packages.  Tolerances are those of
+JAX kernel, and its own bitwise invariants.  MLA's absorbed-decode shape
+(one latent head under many query heads, the latent pool as both K and
+V, a rope term; the kernel's head-tiled instance on the card) is covered
+at a CPU-sized copy: G = 32, D = Dv = 64, De = 16.  Inputs are drawn
+with numpy from a seed and handed to both packages.  Tolerances are those of
 ``test_paged_kernel.py``: 2e-5 for float32, 2e-2 for bfloat16.
 """
 import numpy as np
@@ -22,7 +25,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.paged_attention import paged_attention_fwd  # noqa: E402
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    MAX_GROUP, instance, paged_attention_fwd)
 from repro_torch.kernels.ref import (  # noqa: E402
     PAGES_PER_SPLIT, paged_attention_ref, paged_attention_split_ref)
 from repro_torch.models.layers import attention  # noqa: E402
@@ -250,3 +254,92 @@ def test_cpu_path_counts_no_launch_and_other_devices_raise():
                      torch.float32).items()}
     with pytest.raises(ValueError, match="unsupported device"):
         call(ops, meta)
+
+
+# MLA's absorbed decode at a CPU-sized copy of deepseek-v3's shape (G =
+# 128, D = Dv = 512, De = 64): one latent head, k is v, several splits
+MLA_CPU = dict(B=2, Hq=32, Hkv=1, D=64, page=16,
+               n_cols=2 * PAGES_PER_SPLIT + 1, De=16)
+
+
+def mla_case(used, seed):
+    m = MLA_CPU
+    case = pool_case(m["B"], m["Hq"], m["Hkv"], m["D"], m["page"],
+                     m["n_cols"], used_cols=used, seed=seed, De=m["De"])
+    case["v"] = case["k"]
+    return case
+
+
+MLA_SCALE = (32 + 32) ** -0.5           # (nope + rope) ** -0.5, deepseek smoke
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("used", [1, 3, MLA_CPU["n_cols"]])
+def test_mla_shape_matches_jax(used, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    case = mla_case(used, seed=20 + used)
+    exp = call(jops, to_jax(case, jdt), scale=MLA_SCALE)
+    c = to_torch(case, tdt)
+    c["v"] = c["k"]                     # one tensor as both, as mla_apply
+    out = call(ops, c, scale=MLA_SCALE)
+    assert out.dtype == tdt and out.shape == (2, 1, 32, 64)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(exp, np.float32), atol=tol, rtol=tol)
+    split = paged_attention_split_ref(*(c[k] for k in ARGS), scale=MLA_SCALE,
+                                      q_extra=c["q_extra"],
+                                      k_extra=c["k_extra"])
+    np.testing.assert_allclose(split.float().numpy(),
+                               np.asarray(exp, np.float32), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("used", [1, 3, MLA_CPU["n_cols"]])
+def test_mla_shape_split_ref_matches_sequential_plain(used):
+    c = to_torch(mla_case(used, seed=30 + used), torch.float32)
+    c["v"] = c["k"]
+    kw = dict(scale=MLA_SCALE, q_extra=c["q_extra"], k_extra=c["k_extra"])
+    out = paged_attention_split_ref(*(c[k] for k in ARGS), **kw)
+    exp = paged_attention_ref(*(c[k] for k in ARGS), **kw)
+    torch.testing.assert_close(out, exp, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("extra", [2, 3 * PAGES_PER_SPLIT + 1])
+def test_mla_shape_neutral_columns_and_idle_slot(extra):
+    """-1 columns appended leave the split mirror's output bit for bit;
+    an idle slot outputs exact zeros."""
+    c = to_torch(mla_case(5, seed=40), torch.float32)
+    c["v"] = c["k"]
+    kw = dict(scale=MLA_SCALE, q_extra=c["q_extra"], k_extra=c["k_extra"])
+    base = paged_attention_split_ref(*(c[k] for k in ARGS), **kw)
+    wide = dict(c, table=torch.cat([c["table"], torch.full(
+        (2, extra), -1, dtype=torch.int32)], 1))
+    assert torch.equal(paged_attention_split_ref(*(wide[k] for k in ARGS),
+                                                 **kw), base)
+    c["q_pos"][1, 0] = -1
+    out = paged_attention_split_ref(*(c[k] for k in ARGS), **kw)
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+    assert torch.equal(out[0], base[0])
+    out = paged_attention_ref(*(c[k] for k in ARGS), **kw)
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+
+
+def test_instance_choice():
+    """Groups of more than MAX_GROUP query heads, or head dims past the
+    split kernel's, go to a head-tiled instance: deepseek-v3's absorbed
+    decode in bf16 with the latent pool as k and v to the tensor cores;
+    float32 (which the tensor cores would round), a separate v, other
+    pages, an odd head count or the CPU-sized copy of the shape to the
+    CUDA cores.  The GQA decode shapes of qwen3-8b and jamba, and the
+    small MLA case, keep the split kernel."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert instance(MAX_GROUP, 512, 512, 64, 16, bf, True) == "tiled"
+    assert instance(4, 128, 128, 0, 16, bf, False) == "split"
+    assert instance(4, 48, 48, 16, 8, bf, True) == "split"
+    assert instance(128, 512, 512, 64, 16, bf, True) == "mma"
+    assert instance(64, 512, 512, 64, 16, bf, True) == "mma"
+    assert instance(128, 512, 512, 64, 16, f32, True) == "tiled"
+    assert instance(128, 512, 512, 64, 16, bf, False) == "tiled"
+    assert instance(128, 512, 512, 64, 8, bf, True) == "tiled"
+    assert instance(96, 512, 512, 64, 16, bf, True) == "tiled"
+    assert instance(128, 512, 512, 64, 16, bf, True, aligned=False) == "tiled"
+    assert instance(32, 64, 64, 16, 16, bf, True) == "tiled"
+    assert instance(8, 128, 128, 0, 16, bf, False) == "split"

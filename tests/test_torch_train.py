@@ -313,12 +313,88 @@ def test_unported_options_raise():
     tp = trainable(params_from_jax(_np(jp), device="cpu"))
     with pytest.raises(NotImplementedError, match="dots"):
         TS.loss_fn(tp, tcfg, tbatch, remat_policy="dots")
-    with pytest.raises(NotImplementedError, match="MTP"):
-        TS.make_train_step(dataclasses.replace(tcfg, mtp_depth=1),
-                           TO.adamw(1e-3))
     with pytest.raises(ValueError, match="multiple of microbatches"):
         TS.make_train_step(tcfg, TO.sgd(1e-3), microbatches=3)(
             tp, TO.sgd(1e-3).init(tp), tbatch)
+
+
+# ---------------------------------------------------------------------------
+# multi-token prediction (DeepSeek-V3's depth-1 MTP head)
+# ---------------------------------------------------------------------------
+
+def test_mtp_loss_matches_jax_on_deepseek_smoke():
+    """deepseek-v3's smoke config (MLA, MoE with a shared expert, MTP) in
+    float32: the loss and its terms, ``ce_mtp`` included, against JAX's
+    ``loss_fn``.  Values only: MoE has no reference gradients (its
+    ``optimization_barrier`` has no differentiation rule)."""
+    jcfg, tcfg, jp, batch, tbatch = _step_case("deepseek-v3-671b", B=2, S=12)
+    jl, jm = JS.loss_fn(jp, jcfg, batch)
+    with torch.no_grad():
+        tl, tm = TS.loss_fn(params_from_jax(_np(jp), device="cpu"), tcfg,
+                            tbatch)
+    assert set(tm) == set(jm) == {"ce", "aux", "acc", "ce_mtp"}
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+    for k in ("ce", "aux", "ce_mtp"):
+        np.testing.assert_allclose(tm[k].item(), float(jm[k]), rtol=1e-5,
+                                   err_msg=k)
+
+
+def test_mtp_dense_config_loss_and_gradients_match_jax():
+    """gpt3-24l's smoke config with a depth-1 MTP head: loss, ``ce_mtp``
+    and every gradient leaf (the MTP head's too) against JAX, through the
+    flash path and the scan path; ``make_train_step`` with microbatches
+    averages ``ce_mtp`` like the other metrics."""
+    jcfg = dataclasses.replace(jax_smoke("gpt3-24l"), mtp_depth=1)
+    tcfg = dataclasses.replace(get_smoke_config("gpt3-24l"), mtp_depth=1)
+    jp = jax.tree.map(lambda a: a.astype(jnp.float32),
+                      JT.init_params(jax.random.PRNGKey(5), jcfg))
+    assert "mtp" in jp
+    batch = JD.SyntheticLM(JD.SyntheticConfig(
+        jcfg.vocab_size, 12, 4, noise=0.05, seed=5)).batch(0)
+    tbatch = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+    (jl, jm), jg = jax.jit(jax.value_and_grad(
+        lambda p: JS.loss_fn(p, jcfg, batch), has_aux=True))(jp)
+    for use_kernel in (True, False):
+        tp = trainable(params_from_jax(_np(jp), device="cpu"))
+        tl, tm = TS.loss_fn(tp, tcfg, tbatch, use_kernel=use_kernel)
+        np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+        np.testing.assert_allclose(tm["ce_mtp"].item(), float(jm["ce_mtp"]),
+                                   rtol=1e-5)
+        for t, j in zip(leaves(TS.grads_of(tp, tl)), jax.tree.leaves(jg)):
+            _close_at_scale(t, j, 1e-4, f"grad, use_kernel={use_kernel}")
+    g, m = _sgd_grads(tcfg, trainable(params_from_jax(_np(jp), device="cpu")),
+                      tbatch, microbatches=2)
+    assert "ce_mtp" in m and np.isfinite(m["ce_mtp"].item())
+
+
+def test_trainer_step_on_llava_smoke_with_embeds_matches_jax():
+    """One ``Trainer`` step of llava-next-mistral-7b's smoke config, fed
+    the frontend stub's embeddings beside the tokens, in both packages
+    from the same float32 params: the step's metrics, and the params
+    after the update (as in ``test_train_step_matches_jax``)."""
+    jcfg = jax_smoke("llava-next-mistral-7b")
+    tcfg = get_smoke_config("llava-next-mistral-7b")
+    data = dict(seq_len=16, global_batch=4, noise=0.05,
+                ext_embed_dim=jcfg.ext_embed_dim)
+    jloader = JD.SyntheticLM(JD.SyntheticConfig(jcfg.vocab_size, **data))
+    tloader = TD.SyntheticLM(TD.SyntheticConfig(tcfg.vocab_size, **data),
+                             device="cpu")
+    assert "embeds" in tloader.batch(0)
+    kw = dict(steps=1, lr=1e-3, warmup=1, log_every=1)
+    jt = JTr.Trainer(jcfg, JTr.TrainConfig(**kw), jloader)
+    jt.params = jax.tree.map(lambda a: a.astype(jnp.float32), jt.params)
+    jt.opt_state = jt.optimizer.init(jt.params)
+    p0 = jt.params
+    tt = TTr.Trainer(tcfg, TTr.TrainConfig(device="cpu", **kw), tloader)
+    tt.params = trainable(params_from_jax(_np(p0), device="cpu"))
+    tt.opt_state = tt.optimizer.init(tt.params)
+    jm, = jt.fit(log=lambda s: None)
+    tm, = tt.fit(log=lambda s: None)
+    for k in ("loss", "ce", "grad_norm", "lr"):
+        np.testing.assert_allclose(tm[k], jm[k], rtol=1e-5, err_msg=k)
+    for t, j in zip(leaves(tt.params), jax.tree.leaves(jt.params)):
+        np.testing.assert_allclose(t.detach().numpy(), np.asarray(j),
+                                   atol=2.1e-3, rtol=0)
 
 
 # ---------------------------------------------------------------------------

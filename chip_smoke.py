@@ -19,7 +19,12 @@ failure:
    bf16 within 2e-2, f32 within 1e-4 — the sums run in another
    order than the plain version's), and check that -1 table columns
    (2 and 9 appended, inside a split and as whole empty splits) are
-   exactly neutral and idle slots exactly zero;
+   exactly neutral and idle slots exactly zero.  2b holds the head-tiled
+   instances at deepseek-v3's MLA shape; 2c the split instance at
+   gemma3-12b's (16 q / 8 kv heads of 256): a wrapped 64-column ring
+   with window 1024 whose oldest positions lie below the window, and a
+   128-column table, bf16 and f32, against the plain version and the
+   split-K mirror, -1 columns neutral bit for bit, idle slots zero;
 3. serve qwen3-8b at full width (random bf16 weights drawn on the card)
    through ``ServingEngine(paged=True, use_kernel=True)``: 16 requests,
    half sharing a 256-token system prompt, two sampled.  Every decode
@@ -90,12 +95,37 @@ failure:
    history bit for bit.  Then one ``moe_apply`` layer at
    qwen3-moe-235b-a22b's widths (d 4096, 128 experts of 1536, top-8,
    4.83 GB of bf16 experts drawn on the card) runs twice on 8 decode rows
-   and twice on one 128-token chunk: the same bits each time;
+   and twice on one 128-token chunk: the same bits each time.  9b serves
+   deepseek-v3-671b at full width (4 of 61 layers).  9c serves gemma3-12b
+   at full width and full depth (48 layers: 40 sliding-window, 8
+   global; 11.77 B parameters; 8 slots, cache_len 2048, 16-row pages,
+   chunk 128): the 16 requests of phase 3 and two greedy ones of 1,500
+   tokens whose rings wrap.  Every decode tick's 48 attentions go
+   through the paged-decode kernel (launches == decode ticks x 48, of
+   them with a window == decode ticks x 40), no page is shared, the ring pool is 512 pages and both allocators end
+   all free; on a served state with a wrapped ring, one decode tick
+   through the kernel vs the plain path layer by layer in bf16 (within
+   2e-2 of each layer's scale) and for the whole model in float32
+   activations (within 1e-4 of the logit scale, equal greedy tokens).
+   9d: two engines over the same weights; a 1,300-token greedy request
+   exported after 8 decode ticks (its ring columns in the payload) and
+   imported into the other finishes with the unmoved run's tokens bit
+   for bit, and a payload with one flipped byte is rejected with the
+   destination's caches unchanged.  9e: a ``FleetRouter`` of two gemma3
+   replicas and a standby over the same weights, a fault plan with a
+   crash, a partition and pool pressure, migration "auto", snapshots
+   and rebalancing every 4 ticks: every request ends "ok", the standby
+   is drafted, requests move by export / import and resume from a
+   snapshot, and those never re-prefilled give the tokens of a
+   fault-free run bit for bit (re-prefilled ones are counted);
 10. time ``mamba_scan`` at both served shapes beside its bound (bytes,
    float32 flops and exps on the SFUs) and its plain version (no single
    PyTorch call computes the selective scan, so there is no library
    time), by device time with the event time beside it, and the
-   paged-decode kernel at jamba's decode shape (64 q / 8 kv heads);
+   paged-decode kernel at jamba's decode shape (64 q / 8 kv heads); 10c
+   times it at gemma3's two decode shapes (the full ring with its
+   window, the 128-column table) beside its bound, its plain version
+   and SDPA on the gathered K/V with the window as a boolean mask;
 11. hold the flash-attention kernel against its plain version over the
    sweep of ``tests/test_kernels.py::test_flash_attention_vs_ref`` (plus
    T > S) and at the training shape of qwen3-8b (B=2, S=4096, GQA 32 / 8
@@ -146,9 +176,10 @@ failure:
    Bus bytes per link and each compnode's FP / BP ms beside the paper's
    Eq. 1 estimate for an h100 ``CompNode``.
 
-The phases run in the order 1-2, 5, 11 (the kernel checks), 3-4, 6-7,
-8-10, 12-13, 14 (the sweep), 15, 14 (the large run and times); each
-model is freed before the next is drawn.
+The phases run in the order 1-2c, 10c, 5, 11 (the kernel checks), 3-4,
+6-7, 8-10b, 9b, 9c-9e, 12-13, 14 (the sweep), 15, 14 (the large run and
+times); each model is freed before the next is drawn.  The total time
+is printed before the result lines.
 
 Output: human-readable lines, then one JSON line ``{"kernels": [...]}``,
 the card's name and power limit from nvidia-smi, and last
@@ -397,6 +428,8 @@ def time_steps(eng):
 def reset_counts(kernels) -> None:
     for k in kernels:
         k.launches = 0
+        if hasattr(k, "window_launches"):
+            k.window_launches = 0
 
 
 def serving_times(rec, wall):
@@ -569,17 +602,18 @@ def device_ms(fn, n, kernel=None):
     of names) count (all of the call's when None), and each name must
     come ``n`` times as often as in one call profiled alone: a dropped or
     stray record would read as a shorter or longer call, so both are
-    profiled again, up to three times in all, and then the run fails.  Once the serving phases have run, a
-    session loses the records of its first launches, so each session
-    starts with three untimed calls and a marker kernel, and only records
-    after the marker count."""
+    profiled again, up to three times in all, and then the run fails.
+    Once the serving phases have run, a session loses the records of its
+    first launches (the marker's among them, in some runs, so that
+    nothing counts), so each session starts with 20 untimed calls and a
+    marker kernel, and only records after the marker count."""
     from collections import Counter
     from torch.profiler import ProfilerActivity, profile
 
     def records(calls):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(3):
+            for i in range(20):
                 fn(i)
             torch.cuda._sleep(1000)                # the marker
             for i in range(calls):
@@ -849,6 +883,201 @@ def phase_mla_kernel_times(fwd, ref):
             "bound_cuda_cores_ms": t_cc, "max_abs_err": max_err,
             "call_ms": call_ms, "library_call_ms": library_call_ms,
             "library_kernels": backend}
+
+
+# ---------------------------------------------------------------------------
+# Phase 2c / 10c: the paged-decode kernel at gemma3-12b's shape
+# ---------------------------------------------------------------------------
+
+# gemma3-12b's decode: 16 q / 8 kv heads (G = 2, the kernel's GB = 4
+# bucket) of 256, 16-row pages; its 40 sliding-window layers read a
+# 64-column ring (window 1024), its 8 global layers a 128-column table
+# (cache_len 2048)
+GEMMA_HQ, GEMMA_HKV, GEMMA_D, GEMMA_WINDOW = 16, 8, 256, 1024
+GEMMA_RING_COLS, GEMMA_COLS = 64, 128
+
+
+def ring_case(dtype, seed=0, lag=None, lengths=None):
+    """8 slots over a pool of 8 x 64 ring pages, each row's own 64 ring
+    columns (scattered blocks).  Row b has written positions 0 ..
+    ``last_b`` (``lengths``, most past the 1,024-position ring, so it has
+    wrapped: ring slot l holds the largest written p with p % 1024 == l)
+    and queries at ``last_b + lag_b``: the ``lag_b - 1`` oldest positions
+    in the ring lie below q_pos - 1023 and must be masked by the window."""
+    g = torch.Generator().manual_seed(seed + 300)
+    B, page, R = 8, 16, GEMMA_RING_COLS
+    lengths = lengths or [1500, 2040, 1100, 300, 1024, 1700, 1999, 40]
+    lag = lag or torch.randint(1, 41, (B,), generator=g).tolist()
+    N = B * R
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g).to(dtype).cuda()
+
+    table = torch.randperm(N, generator=g).reshape(B, R).to(torch.int32)
+    pos = torch.full((N, page), -1, dtype=torch.int32)
+    for b in range(B):
+        for p in range(max(0, lengths[b] - R * page), lengths[b]):
+            sl = p % (R * page)
+            pos[table[b, sl // page], sl % page] = p
+        # a ring not yet wrapped leaves its unwritten columns unallocated
+        n_used = min(R, -(-lengths[b] // page))
+        table[b, n_used:] = -1
+    q_pos = torch.tensor([[lengths[b] - 1 + lag[b]] for b in range(B)],
+                         dtype=torch.int32)
+    return {"q": rnd(B, 1, GEMMA_HQ, GEMMA_D),
+            "k": rnd(N, page, GEMMA_HKV, GEMMA_D),
+            "v": rnd(N, page, GEMMA_HKV, GEMMA_D), "pos": pos.cuda(),
+            "table": table.cuda(), "q_pos": q_pos.cuda()}
+
+
+def global_case(dtype, seed=0):
+    """The global layers' shape: 8 slots, a 128-column table over a
+    1,024-page pool, rows filled to mixed lengths (2..128 pages)."""
+    g = torch.Generator().manual_seed(seed + 400)
+    used = torch.randint(2, GEMMA_COLS + 1, (8,), generator=g).tolist()
+    return pool_case(8, GEMMA_HQ, GEMMA_HKV, GEMMA_D, 16, GEMMA_COLS, used,
+                     seed=seed, dtype=dtype, N=1024)
+
+
+def phase_gemma_vs_plain(fwd, ref):
+    """The kernel at gemma3's shape against the plain version and the
+    split-K mirror: a wrapped windowed ring and the 128-column table, bf16
+    within 2e-2 and f32 within 1e-4; a windowed position below the window
+    really changes the output when unmasked (so the mask is exercised);
+    -1 columns appended to the ring bit for bit neutral; an idle slot
+    exact zeros."""
+    from repro_torch.kernels.ref import paged_attention_split_ref
+    worst = {}
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        tol = TOL[dname]
+        cases = [(ring_case(dtype, seed=s), GEMMA_WINDOW) for s in (0, 1)]
+        cases += [(global_case(dtype, seed=s), 0) for s in (0, 1)]
+        for c, window in cases:
+            out = run_kernel(fwd, c, window=window)
+            torch.cuda.synchronize()
+            exp = run_kernel(ref, c, window=window)
+            torch.testing.assert_close(out.float(), exp.float(), atol=tol,
+                                       rtol=tol)
+            split = run_kernel(paged_attention_split_ref, c, window=window)
+            torch.testing.assert_close(out.float(), split.float(), atol=tol,
+                                       rtol=tol)
+            worst[dname] = max(worst.get(dname, 0.0),
+                               (out.float() - exp.float()).abs().max().item())
+        c = cases[0][0]
+        base = run_kernel(fwd, c, window=GEMMA_WINDOW)
+        # the window is doing work: the same ring without it reads the
+        # positions below q_pos - 1023 and must differ
+        nowin = run_kernel(fwd, c)
+        tab = c["table"]
+        got = c["pos"][tab.clamp(min=0).long()]            # (8, 64, 16)
+        masked = int(((tab >= 0)[..., None] & (got >= 0)
+                      & (got <= c["q_pos"][:, :, None] - GEMMA_WINDOW)).sum())
+        if masked == 0 or torch.equal(nowin, base):
+            fail(f"{dname}: the ring case holds no position below the "
+                 f"window ({masked}) or the window changed nothing")
+        for extra in (2, 9):
+            wide = dict(c, table=torch.cat(
+                [c["table"], torch.full((8, extra), -1, dtype=torch.int32,
+                                        device="cuda")], 1).contiguous())
+            if not torch.equal(run_kernel(fwd, wide, window=GEMMA_WINDOW),
+                               base):
+                fail(f"{dname}: {extra} -1 columns changed gemma3's output")
+        idle = dict(c, q_pos=c["q_pos"].clone())
+        idle["q_pos"][2, 0] = -1
+        out = run_kernel(fwd, idle, window=GEMMA_WINDOW)
+        if out[2].abs().max().item() != 0.0 or not torch.equal(out[0],
+                                                              base[0]):
+            fail(f"{dname}: an idle gemma3 slot did not output exact zeros")
+        torch.cuda.synchronize()
+        print(f"gemma3 shape (B=8, Hq=16, Hkv=8, D=256) kernel vs plain "
+              f"[{dname}]: wrapped 64-column ring with window 1024 "
+              f"({masked} ring positions below the window) and 128-column "
+              f"table, max abs err {worst[dname]:.3e} (tol {tol}; also "
+              f"within it of the split-K mirror); -1 columns neutral, idle "
+              f"slots zero")
+    return worst
+
+
+def phase_gemma_kernel_times(fwd, ref):
+    """The kernel at gemma3's two decode shapes beside its bound, its
+    plain version and SDPA on the gathered K/V with the window as a
+    boolean mask: the full ring (8 x 1024 positions, every column
+    allocated) and the 128-column table filled to 2,048 positions."""
+    import torch.nn.functional as F
+    from repro_torch.models.layers import gather_pages, gather_pos
+    full = [GEMMA_RING_COLS * 16 + 500 + 37 * b for b in range(8)]
+    shapes = {
+        "ring": ([ring_case(torch.bfloat16, seed=s, lag=[1] * 8,
+                            lengths=full) for s in range(4)], GEMMA_WINDOW),
+        "global": ([pool_case(8, GEMMA_HQ, GEMMA_HKV, GEMMA_D, 16,
+                              GEMMA_COLS, GEMMA_COLS, seed=s,
+                              dtype=torch.bfloat16, N=1024)
+                    for s in range(4)], 0)}
+    res = {}
+    for name, (cases, window) in shapes.items():
+        c = cases[0]
+        B, _, Hq, D = c["q"].shape
+        page, Hkv, Dv = c["v"].shape[1], c["v"].shape[2], c["v"].shape[3]
+        out = run_kernel(fwd, c, window=window)
+        exp = run_kernel(ref, c, window=window)
+        max_err = (out.float() - exp.float()).abs().max().item()
+        for _ in range(3):
+            run_kernel(fwd, c, window=window)
+        call_ms = event_ms(
+            lambda i: run_kernel(fwd, cases[i % 4], window=window), 200)
+        ms = device_ms(lambda i: run_kernel(fwd, cases[i % 4], window=window),
+                       200, "paged_split_kernel")
+        plain_ms = event_ms(
+            lambda i: run_kernel(ref, cases[i % 4], window=window), 5)
+
+        def sdpa_inputs(c):
+            t = c["table"]
+            kd = gather_pages(c["k"], t).transpose(1, 2)
+            vd = gather_pages(c["v"], t).transpose(1, 2)
+            kp = gather_pos(c["pos"], t)
+            mask = (kp >= 0) & (kp <= c["q_pos"])
+            if window:
+                mask &= kp > c["q_pos"] - window
+            return c["q"].transpose(1, 2), kd, vd, mask[:, None, None, :]
+        gathered = [sdpa_inputs(c) for c in cases]
+
+        def sdpa(i):
+            q, kd, vd, mask = gathered[i % 4]
+            return F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask,
+                                                  enable_gqa=True)
+        torch.testing.assert_close(sdpa(0).transpose(1, 2).float(),
+                                   exp.float(), atol=2e-2, rtol=2e-2)
+        for i in range(3):
+            sdpa(i)
+        library_call_ms = event_ms(sdpa, 200)
+        library_ms = device_ms(sdpa, 200)
+        del gathered
+        # each allocated page's K/V (+ positions) read once per kv head,
+        # q / table / q_pos read once, the output written once; q.k and
+        # p.v over every allocated position
+        cols = int((c["table"] >= 0).sum())
+        isz = c["q"].element_size()
+        byts = (cols * page * Hkv * (D + Dv) * isz + cols * page * 4
+                + c["table"].numel() * 4 + B * 4 + B * Hq * D * isz
+                + B * Hq * Dv * isz)
+        flops = 2 * cols * page * Hq * (D + Dv)
+        t_bytes, t_ops = byts / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        print(f"paged_attention at gemma3-12b's {name} shape (B=8, Hq=16, "
+              f"Hkv=8, D=256, page 16, {c['table'].shape[1]} columns, {cols} "
+              f"allocated{', window 1024' if window else ''}): kernel "
+              f"{ms * 1e3:.2f} us of device time ({call_ms * 1e3:.2f} us per "
+              f"call back to back), bound {bound_ms * 1e3:.2f} us "
+              f"({byts / 1e6:.2f} MB), plain {plain_ms * 1e3:.1f} us, sdpa "
+              f"on gathered K/V {library_ms * 1e3:.2f} us of device time "
+              f"({library_call_ms * 1e3:.2f} us per call)")
+        res[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound_ms,
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "max_abs_err": max_err, "call_ms": call_ms,
+                     "library_call_ms": library_call_ms}
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1865,6 +2094,373 @@ def phase_serve_deepseek(paged_fwd, kernels):
 
 
 # ---------------------------------------------------------------------------
+# Phase 9c: gemma3-12b served at full width and full depth
+# ---------------------------------------------------------------------------
+
+GEMMA_CACHE_LEN = 2048           # above the window: rings wrap
+
+
+def gemma_requests(Request, vocab, seed=0):
+    """The 16 requests of phase 3 (32..600 tokens, the even ones behind a
+    256-token system prompt, requests 3 and 10 sampled) and two greedy
+    ones of 1,500 tokens: longer than the 1,024-position window, so their
+    rings wrap in prefill and again in decode (11 full chunks and one of
+    92 tokens: no 1-token chunk)."""
+    reqs = make_requests(Request, vocab, seed)
+    rng = np.random.default_rng(seed + 50)
+    for i in (16, 17):
+        reqs.append(Request(i, rng.integers(0, vocab, 1500).tolist(),
+                            max_new=32))
+    return reqs
+
+
+def gemma_engine(params, cfg, ServingEngine, device="cuda"):
+    return ServingEngine(params, cfg, slots=8, cache_len=GEMMA_CACHE_LEN,
+                         page_size=16, chunk=128, paged=True, use_kernel=True,
+                         device=device)
+
+
+def phase_serve_gemma(paged_fwd, kernels):
+    """Serve gemma3-12b (48 layers: 40 sliding-window, 8 global) and hold
+    one decode tick on a wrapped ring through the kernel against the
+    plain path; returns (launches, timing, params, cfg) — launches of
+    the ring (windowed) and global layers, counted apart; the parameters
+    stay for phases 9d and 9e."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import SWA
+    from repro_torch.models.layers import attn_apply, ffn_apply, rmsnorm
+    from repro_torch.models.transformer import (_period, embed_inputs,
+                                                forward, init_params, unembed)
+    from repro_torch.serve.engine import Request, ServingEngine, _cache_leaves
+
+    cfg = get_config("gemma3-12b")
+    t0 = time.time()
+    params = init_params(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    leaf_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    print(f"gemma3-12b, all {cfg.n_layers} layers ({cfg.n_layers * 5 // 6} "
+          f"sliding-window of window {cfg.sliding_window}, "
+          f"{cfg.n_layers // 6} global; d_model {cfg.d_model}, "
+          f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}): {n_params / 1e9:.3f} B "
+          f"parameters, {leaf_gb:.2f} GB, drawn on the card in "
+          f"{time.time() - t0:.1f}s")
+    eng = gemma_engine(params, cfg, ServingEngine)
+    pools = {kind: sum(t.numel() * t.element_size() for _, idx, name, _, t
+                       in _cache_leaves(eng.caches)
+                       if (cfg.period[idx].mixer == SWA) == (kind == "swa"))
+             / 1e9 for kind in ("swa", "global")}
+    if eng.num_blocks_swa != 512 or eng._ring_blocks != 64:
+        fail(f"gemma3 ring pool {eng.num_blocks_swa} pages, ring "
+             f"{eng._ring_blocks} columns (expected 512, 64)")
+    t0 = time.time()
+    eng.warmup()
+    print(f"warmup: {time.time() - t0:.1f}s; pools: {eng.num_blocks} global "
+          f"pages x {cfg.n_layers // 6} layers ({pools['global']:.2f} GB), "
+          f"{eng.num_blocks_swa} ring pages (8 slots x {eng._ring_blocks}) x "
+          f"{cfg.n_layers * 5 // 6} layers ({pools['swa']:.2f} GB)")
+    reqs = gemma_requests(Request, cfg.vocab_size)
+    for r in reqs:
+        eng.submit(r)
+    rec = time_steps(eng)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)                # count only the main path's run
+    torch.cuda.synchronize()
+    t0 = time.time()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = paged_fwd.launches
+    ring = paged_fwd.window_launches
+    n_swa = (cfg.n_layers // len(cfg.period)
+             * sum(spec.mixer == SWA for spec in cfg.period))
+    st = eng.stats
+    if len(done) != 18 or any(len(r.generated) != 32 for r in done):
+        fail("not every gemma3 request finished with 32 tokens")
+    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.generated):
+        fail("a generated token lies outside the vocabulary")
+    if st["shared_pages"] != 0:
+        fail("a sliding-window engine shared a page")
+    if launches != st["decode_calls"] * cfg.n_layers:
+        fail(f"paged_attention launches {launches} != decode_calls "
+             f"{st['decode_calls']} x {cfg.n_layers}")
+    if ring != st["decode_calls"] * n_swa:
+        fail(f"windowed paged_attention launches {ring} != decode_calls "
+             f"{st['decode_calls']} x {n_swa} sliding-window layers")
+    if (eng._alloc.n_free, eng._alloc_swa.n_free) != (
+            eng.num_blocks, eng.num_blocks_swa) or eng._alloc.reserved \
+            or eng._alloc_swa.reserved:
+        fail("gemma3: the allocators are not back to all free")
+    print(f"served 18 requests x 32 tokens in {wall:.2f}s: "
+          f"{st['prefill_calls']} prefill calls, {st['decode_calls']} decode "
+          f"ticks, {st['shared_pages']} shared pages; paged_attention "
+          f"launches {launches} = {st['decode_calls']} x {cfg.n_layers}, "
+          f"{ring} of them windowed = {st['decode_calls']} x {n_swa}; both "
+          f"allocators all free at the end")
+    timing = serving_times(rec, wall)
+
+    # a served state: 8 new requests, one of 1,300 tokens (its ring has
+    # wrapped), then one decode tick with every slot live
+    del eng._call_step                   # back to the untimed step
+    more = make_requests(Request, cfg.vocab_size, seed=1)[:7]
+    more.append(Request(99, np.random.default_rng(9).integers(
+        0, cfg.vocab_size, 1300).tolist(), max_new=8))
+    for r in more:
+        eng.submit(r)
+    eng._admit()
+    if max(eng.positions) <= cfg.sliding_window:
+        fail("no ring has wrapped in the served state")
+    toks = torch.tensor([[eng.active[s].pending] for s in range(8)],
+                        dtype=torch.int32, device="cuda")
+    pos = torch.tensor([[eng.positions[s]] for s in range(8)],
+                       dtype=torch.int32, device="cuda")
+    for s in range(8):
+        eng._ensure_blocks(s, eng.positions[s], eng.positions[s])
+    table = eng._table_arg()
+    ck, cp = copy.deepcopy(eng.caches), copy.deepcopy(eng.caches)
+    x = embed_inputs(params, cfg, {"tokens": toks})
+    worst = {SWA: 0.0, "attn": 0.0}
+    stack = cfg.stacks[0]
+    for t in range(stack.n_periods):
+        pp = _period(params["stack"], t)
+        pk, pq = _period(ck["stack"], t), _period(cp["stack"], t)
+        for j, spec in enumerate(stack.period):
+            lp = pp[j]
+            window = cfg.sliding_window if spec.mixer == SWA else 0
+            h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+            ok_, op = (attn_apply(lp["mixer"], h, cfg, positions=pos, cache=c,
+                                  window=window, masked_slots=True,
+                                  table=table, use_kernel=k)[0]
+                       for c, k in ((pk[j], True), (pq[j], False)))
+            e = ((ok_.float() - op.float()).abs().max()
+                 / op.float().abs().max().clamp(min=1e-30)).item()
+            if e > 2e-2:
+                fail(f"gemma3 decode tick: layer {t * 6 + j} ({spec.mixer}): "
+                     f"kernel vs plain attention output {e} of its scale")
+            worst[spec.mixer] = max(worst[spec.mixer], e)
+            x = x + op
+            x = x + ffn_apply(lp["ffn"], rmsnorm(x, lp["norm2"], cfg.norm_eps))
+    del ck, cp, x
+    print(f"decode tick on a served state (slot positions "
+          f"{sorted(eng.positions)}; rings wrapped past {cfg.sliding_window}), "
+          f"layer by layer on the same input: kernel vs plain attention "
+          f"output max err {worst[SWA]:.3e} (40 ring layers) / "
+          f"{worst['attn']:.3e} (8 global layers) of its scale (tol 2e-2)")
+
+    # the whole model in float32 activations (the embedding upcast; every
+    # matmul upcasts its bf16 weight on the fly, one layer at a time)
+    params32 = dict(params, embed=params["embed"].float())
+    logits = []
+    for use_kernel in (True, False):
+        h, _, _ = forward(params32, cfg, {"tokens": toks},
+                          caches=f32_copy(eng.caches), positions=pos,
+                          decode=True, masked_slots=True, block_table=table,
+                          compute_logits=False, use_kernel=use_kernel)
+        logits.append(unembed(params32, cfg, h[:, -1:, :])[:, 0])
+        del h
+    del params32
+    lk, lp = logits
+    if lk.shape != (8, cfg.vocab_size) or not torch.isfinite(lk).all():
+        fail("gemma3 decode logits are not finite (8, vocab)")
+    err = (lk - lp).abs().max().item()
+    scale = max(1.0, lp.abs().max().item())
+    same = int((lk.argmax(-1) == lp.argmax(-1)).sum())
+    print(f"decode tick, all {cfg.n_layers} layers in float32 activations: "
+          f"max |dlogit| "
+          f"kernel vs plain {err:.4e} at logit scale {scale:.3f} (tol "
+          f"{1e-4 * scale:.4e}); greedy equal in {same}/8")
+    if err > 1e-4 * scale:
+        fail(f"gemma3: float32 kernel-path logits differ from the plain "
+             f"path by {err} (tol {1e-4 * scale})")
+    if same != 8:
+        fail("gemma3: a live slot's float32 greedy token differs")
+    del logits, lk, lp
+    timing.update(profile_ticks(eng))
+    return ({"ring": ring, "global": launches - ring}, timing, params,
+            cfg)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9d: a live gemma3-12b request migrated between two engines
+# ---------------------------------------------------------------------------
+
+def phase_gemma_migration(params, cfg):
+    """Engines A and B over one parameter tree: a 1,300-token greedy
+    request decodes 8 ticks on A, is exported, and finishes on B with the
+    tokens of the same request served on A unmoved; a payload with one
+    flipped byte is rejected with B's caches unchanged bit for bit."""
+    import dataclasses
+    from repro_torch.serve.engine import Request, ServingEngine, _cache_leaves
+    from repro_torch.serve.router import _flip_payload
+    a = gemma_engine(params, cfg, ServingEngine)
+    b = gemma_engine(params, cfg, ServingEngine)
+    if a.migration_fingerprint() != b.migration_fingerprint():
+        fail("two engines over one tree differ in fingerprint")
+    prompt = np.random.default_rng(11).integers(0, cfg.vocab_size,
+                                                1300).tolist()
+    a.submit(Request(0, list(prompt), max_new=32))
+    ref = a.run()[0].generated
+    req = Request(1, list(prompt), max_new=32)
+    a.submit(req)
+    while len(req.generated) < 8:
+        a.tick()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state = a.export_state(req)
+    export_ms = (time.time() - t0) * 1e3
+    if state.cols_swa != list(range(64)) or state.position <= 1024:
+        fail(f"gemma3 export: ring columns {state.cols_swa}, position "
+             f"{state.position} (a wrapped ring expected)")
+    if a.n_active or a._alloc.n_free != a.num_blocks \
+            or a._alloc_swa.n_free != a.num_blocks_swa:
+        fail("gemma3 export did not release the source slot")
+    bad = dataclasses.replace(state, pool=dict(state.pool))
+    _flip_payload(bad)
+    before = [t.clone() for _, _, _, _, t in _cache_leaves(b.caches)]
+    if b.import_state(bad) or b.stats["import_rejects"] != 1:
+        fail("gemma3: a payload with a flipped byte was not rejected")
+    if not all(torch.equal(x, t) for x, (_, _, _, _, t)
+               in zip(before, _cache_leaves(b.caches))) or b.n_active \
+            or b._alloc.n_free != b.num_blocks:
+        fail("gemma3: a rejected import changed the destination")
+    del before, bad
+    t0 = time.time()
+    if not b.import_state(state):
+        fail("gemma3: the verified payload was not imported")
+    torch.cuda.synchronize()
+    import_ms = (time.time() - t0) * 1e3
+    out = b.run()
+    if out[0] is not req or req.generated != ref:
+        fail("gemma3: the migrated request's tokens differ from the "
+             "unmoved run")
+    print(f"migration: a 1,300-token request exported after 8 decode ticks "
+          f"(position {state.position}, {len(state.cols)} global + "
+          f"{len(state.cols_swa)} ring columns, payload "
+          f"{state.payload_bytes / 1e6:.1f} MB), export {export_ms:.1f} ms, "
+          f"import {import_ms:.1f} ms (host clock, synchronized); its 32 "
+          f"tokens equal the unmoved run's bit for bit; a flipped byte was "
+          f"rejected (import_rejects 1) with B's caches unchanged")
+    return {"payload_bytes": state.payload_bytes, "export_ms": export_ms,
+            "import_ms": import_ms}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9e: FleetRouter over gemma3-12b replicas on the card
+# ---------------------------------------------------------------------------
+
+def fleet_plan(Fault, FaultPlan):
+    """A partition of replica 1 (ticks 3-5), a crash of replica 0 mid-decode
+    (tick 12) and pool pressure on replica 1 (64 pages, ticks 14-17).
+    The router decides from token counts alone: with these ticks a
+    request rebalanced before the crash survives it, so the run holds a
+    migrated request that was never re-prefilled."""
+    return FaultPlan([Fault(3, 1, "partition", duration=3),
+                      Fault(12, 0, "crash"),
+                      Fault(14, 1, "pool_pressure", pages=64, duration=4)])
+
+
+def fleet_requests(Request, vocab, n=12, seed=3):
+    """``n`` greedy requests of 32..600 tokens, 24 new tokens each (no
+    1-token prefill chunk)."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n):
+        m = int(rng.integers(32, 601))
+        m += m % 128 == 1
+        reqs.append(Request(i, rng.integers(0, vocab, m).tolist(),
+                            max_new=24))
+    return reqs
+
+
+def phase_fleet(params, cfg, device="cuda"):
+    """Two replicas and a standby over one parameter tree on the card, the
+    plan above, ``migration="auto"``, snapshots every 4 ticks and
+    rebalancing every 4: every request ends "ok", the standby is drafted,
+    requests move by export / import and resume from a snapshot; those
+    that never moved, or moved by migration, give the tokens of a
+    fault-free run of one engine bit for bit (at least one of them moved
+    by migration).  Requests re-prefilled
+    from the prompt or a snapshot are counted, not gated: their KV comes
+    from the plain prefill path, the KV they replace from kernel decode
+    ticks, and the two sum in different orders."""
+    from repro_torch.serve.engine import Request, ServingEngine
+    from repro_torch.serve.faults import Fault, FaultPlan
+    from repro_torch.serve.router import FleetRouter
+
+    def engine():
+        return gemma_engine(params, cfg, ServingEngine, device)
+    plain = engine()
+    for r in fleet_requests(Request, cfg.vocab_size):
+        plain.submit(r)
+    t0 = time.time()
+    ref = {r.req_id: r.generated for r in plain.run()}
+    plain_s = time.time() - t0
+    del plain
+    engines = [engine() for _ in range(3)]
+    submits = {}
+    for e in engines:
+        def counted(req, _submit=e.submit):
+            submits[req.req_id] = submits.get(req.req_id, 0) + 1
+            _submit(req)
+        e.submit = counted
+    router = FleetRouter([(engines[0], "rtx4090"), (engines[1], "rtx4090")],
+                         standby=[(engines[2], "rtx4090")],
+                         fault_plan=fleet_plan(Fault, FaultPlan),
+                         migration="auto", snapshot_every=4,
+                         rebalance_every=4)
+    reqs = fleet_requests(Request, cfg.vocab_size)
+    for r in reqs:
+        router.submit(r)
+    t0 = time.time()
+    res = router.run(max_ticks=2000)
+    fleet_s = time.time() - t0
+    st = router.stats
+    eng_st = {k: sum(e.stats[k] for e in engines)
+              for k in ("exported", "imported", "import_rejects",
+                        "resumed_tokens", "deduped_pages")}
+    if len(res.completed) != len(reqs) or any(r.outcome != "ok"
+                                              for r in res.completed):
+        fail(f"fleet: outcomes {res.outcomes()}")
+    if st["replacements"] < 1 or not engines[2] in [r.engine for r in
+                                                    router.live_replicas()]:
+        fail("fleet: the standby was not drafted")
+    if st["injected_crashes"] != 1 or st["partitions"] != 1 \
+            or st["pool_pressure"] != 1:
+        fail(f"fleet: the plan's faults did not all strike ({st})")
+    if eng_st["exported"] < 1 or eng_st["imported"] < 1:
+        fail(f"fleet: no export / import happened ({eng_st})")
+    if st["snapshot_restores"] < 1 or eng_st["resumed_tokens"] < 1:
+        fail(f"fleet: no snapshot resume happened ({st}, {eng_st})")
+    reprefilled = [r.req_id for r in reqs if submits.get(r.req_id, 0) > 1]
+    kept = [r for r in res.completed if r.req_id not in reprefilled]
+    bad = [r.req_id for r in kept if r.generated != ref[r.req_id]]
+    if bad:
+        fail(f"fleet: requests {bad} (never re-prefilled) differ from the "
+             f"fault-free run")
+    moved = [r.req_id for r in kept if len(router.placements[r.req_id]) > 1]
+    if not moved:
+        fail("fleet: no request moved by migration alone")
+    same_re = sum(r.generated == ref[r.req_id] for r in res.completed
+                  if r.req_id in reprefilled)
+    print(f"fleet: 2 replicas + 1 standby, {len(reqs)} requests in "
+          f"{res.ticks} ticks ({fleet_s:.1f}s; one engine without faults "
+          f"{plain_s:.1f}s): outcomes {res.outcomes()}; crash "
+          f"{st['injected_crashes']}, partition {st['partitions']} (healed "
+          f"{st['partition_heals']}), pool pressure {st['pool_pressure']}, "
+          f"standby drafted {st['replacements']}, requeued {st['requeued']}, "
+          f"snapshot restores {st['snapshot_restores']}, migrations "
+          f"{st['migrations']}, rebalances {st['rebalances']} (held in place "
+          f"{st['rebalance_holds']}); engines: {eng_st}.  "
+          f"{len(kept)} requests never re-prefilled (of them {len(moved)} "
+          f"moved by migration) equal the fault-free run bit for bit; "
+          f"{len(reprefilled)} re-prefilled, {same_re} of them equal too "
+          f"(not gated)")
+    return {"fleet_s": fleet_s, "ticks": res.ticks, **eng_st,
+            "reprefilled": len(reprefilled), "moved": len(moved)}
+
+
+# ---------------------------------------------------------------------------
 # Phase 10: mamba_scan times at the served shapes
 # ---------------------------------------------------------------------------
 
@@ -2815,7 +3411,9 @@ def print_build_report(build, libs) -> None:
           f"CUDA-core instance ({PA.TILE_HEADS} heads) "
           f"{PA.smem_bytes('tiled', 128, 512, 512, 64, 16, 2, True)} / "
           f"{PA.smem_bytes('tiled', 128, 512, 512, 64, 16, 4, True)} B in "
-          f"bf16 / f32")
+          f"bf16 / f32; at gemma3's G = 2, D = Dv = 256: split instance "
+          f"{PA.smem_bytes('split', 2, 256, 256, 0, 16, 2)} / "
+          f"{PA.smem_bytes('split', 2, 256, 256, 0, 16, 4)} B in bf16 / f32")
     for name in ("rwkv_scan", "mamba_scan"):   # PERF.md names each spill
         spills = [f"{inst} {spill} B" for inst, _, _, spill, _
                   in ptxas_summary(build.logs.get(name, "")) if spill]
@@ -2848,6 +3446,7 @@ def main() -> int:
     kernels = (paged_attention_fwd, rwkv_scan_fwd, mamba_scan_fwd,
                flash_attention_fwd, int8_quantize_fwd, int8_dequantize_fwd)
 
+    t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -2863,6 +3462,13 @@ def main() -> int:
 
     phase_kernel_vs_plain(paged_attention_fwd, paged_attention_ref)
     phase_mla_vs_plain(paged_attention_fwd, paged_attention_ref)
+    phase_gemma_vs_plain(paged_attention_fwd, paged_attention_ref)
+    # timed before any serving phase: after them a profiler session loses
+    # the records of its first launches, and 10c's one-call count read 0
+    pa_gemma = phase_gemma_kernel_times(paged_attention_fwd,
+                                        paged_attention_ref)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_rwkv_vs_plain(rwkv_scan_fwd, rwkv_scan_ref)
     phase_flash_vs_plain(flash_attention_fwd, flash_attention_ref)
     gc.collect()
@@ -2894,7 +3500,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ds_launches, _ = phase_serve_deepseek(paged_attention_fwd, kernels)
-    gc.collect()                         # deepseek's 30 GB go before training
+    gc.collect()                         # deepseek's 30 GB go before gemma3
+    torch.cuda.empty_cache()
+    gm_launches, _, gm_params, gm_cfg = phase_serve_gemma(paged_attention_fwd,
+                                                          kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_gemma_migration(gm_params, gm_cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_fleet(gm_params, gm_cfg)
+    del gm_params                        # gemma3's 23.5 GB go before training
+    gc.collect()
     torch.cuda.empty_cache()
     fa_launches, _, _ = phase_train(flash_attention_fwd, kernels)
     fa_times = phase_flash_times(flash_attention_fwd, flash_attention_ref)
@@ -2919,7 +3536,16 @@ def main() -> int:
                              launches=jamba_launches["paged_attention"]),
                     "deepseek-v3-671b MLA decode B=8 Hq=128 Hkv=1 "
                     "D=Dv=512 De=64, k is v":
-                        dict(pa_mla, launches=ds_launches)}},
+                        dict(pa_mla, launches=ds_launches),
+                    # 40 of gemma3's 48 layers read the ring, 8 the table
+                    "gemma3-12b ring decode B=8 Hq=16 Hkv=8 D=256, 64 "
+                    "columns, window 1024":
+                        dict(pa_gemma["ring"],
+                             launches=gm_launches["ring"]),
+                    "gemma3-12b global decode B=8 Hq=16 Hkv=8 D=256, 128 "
+                    "columns":
+                        dict(pa_gemma["global"],
+                             launches=gm_launches["global"])}},
         # the decode shape leads (every tick runs it); both shapes follow
         {"name": "rwkv_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rwkv_scan.cu",
@@ -2952,6 +3578,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/quantize.py:63",
          "launches": plane_launches["int8_dequantize_fwd"], **dq_times},
     ]
+    print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": result}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,12 +5,12 @@ ported — the dense full-attention ones (``gpt3-24l``, ``qwen3-8b``,
 ``llava-next-mistral-7b`` and ``musicgen-medium`` (precomputed patch /
 frame embeddings through ``ext_proj``; their engines take tokens), the
 attention-free ``rwkv6-7b``, the Mamba + attention + MoE hybrid
-``jamba-1.5-large-398b`` and the MLA + MoE + MTP ``deepseek-v3-671b``.
+``jamba-1.5-large-398b``, the MLA + MoE + MTP ``deepseek-v3-671b`` and
+``gemma3-12b`` (five sliding-window layers to one global one).
 
 Each ``<arch>.py`` module exports ``CONFIG`` (the exact spec, source
 cited) and ``SMOKE`` (a reduced same-family variant runnable on the CPU).
-``gemma3-12b`` needs sliding-window attention, which the port does not
-have yet; asking for it raises ``NotImplementedError``.
+Every arch of the JAX package is ported.
 """
 from __future__ import annotations
 
@@ -31,19 +31,13 @@ _ARCH_MODULES = {
     "llava-next-mistral-7b": "llava_next_mistral_7b",
     "musicgen-medium": "musicgen_medium",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "gemma3-12b": "gemma3_12b",
 }
-
-# archs of the JAX package whose mixers are not ported yet
-_NOT_YET_PORTED = ("gemma3-12b",)
 
 ALL_ARCHS: Tuple[str, ...] = tuple(_ARCH_MODULES)
 
 
 def _module(name: str):
-    if name in _NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"repro_torch: arch {name!r} is not yet ported (ported: "
-            f"{', '.join(ALL_ARCHS)})")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}")
     return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}")

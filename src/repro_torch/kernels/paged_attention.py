@@ -8,7 +8,10 @@ split-K partials, and launches on PyTorch's current stream — or raises;
 nothing falls back.  ``paged_attention_fwd.launches`` counts calls that
 launched the kernel (one each: the split kernel merges its partials in
 the same launch; a head-tiled instance launches its split kernel and the
-merge kernel), so a run can show that its decode ticks went through it.
+merge kernel), so a run can show that its decode ticks went through it;
+``paged_attention_fwd.window_launches`` counts those of them with a
+window, so a run can tell a model's sliding-window layers from its
+global ones.
 
 Query groups of up to ``MAX_GROUP`` heads with head dims up to
 ``MAX_HEAD_DIM`` run the split kernel; larger ones (MLA's absorbed decode:
@@ -225,7 +228,10 @@ def paged_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"paged_attention_fwd: CUDA launch failed "
                            f"(cudaError_t {err})")
     paged_attention_fwd.launches += 1
+    if window > 0:
+        paged_attention_fwd.window_launches += 1
     return out
 
 
 paged_attention_fwd.launches = 0
+paged_attention_fwd.window_launches = 0

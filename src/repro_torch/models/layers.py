@@ -1,12 +1,14 @@
 """Decoder layers in PyTorch: the counterparts of ``repro.models.layers``
-for full-attention models with dense or mixture-of-experts FFNs.
+for full-attention and sliding-window models with dense or
+mixture-of-experts FFNs.
 
 Layer math is plain functions on tensors; parameters are nested dicts of
 tensors under the JAX package's key names.  Unlike the JAX package, the
 cache writes (``ring_write`` and the helpers above it) update the cache
 tensors IN PLACE and return them, so a serving engine keeps one copy of
-its pools.  Sliding-window attention (``attn_apply`` with ``window > 0``)
-waits for a later slice of the port.  The dense layers are
+its pools.  Where the JAX code reads a cache from before a write (a
+sliding-window ring that a prefill chunk wraps), the port copies it
+first.  The dense layers are
 differentiable by autograd when they run without a cache (training);
 MoE is forward only, like the reference (its ``optimization_barrier``
 has no differentiation rule).
@@ -229,13 +231,13 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                table=None, use_kernel: bool = False):
     """x: (B,S,d).  cache: dense {"k","v": (B,T,Hkv,D), "pos": (B,T)}, or
     a paged pool {"k","v": (N,page,Hkv,D), "pos": (N,page)} when a
-    (B, n_cols) block ``table`` is given.  The cache is written in place;
-    returns (out, cache).  ``use_kernel``: paged single-token decode runs
-    the paged-decode kernel, and self-attention with no cache (whose
-    positions must be arange(S)) the flash-attention kernel."""
-    if window > 0:
-        raise NotImplementedError(
-            "repro_torch: sliding-window attention is not ported yet")
+    (B, n_cols) block ``table`` is given, or per-kind tables {"attn",
+    "swa"}.  A sliding-window layer (``window > 0``) cycles over the first
+    ``swa_ring_blocks`` table columns as ring pages, or keeps a dense
+    ring of ``min(window, cache_len)`` entries.  The cache is written in
+    place; returns (out, cache).  ``use_kernel``: paged single-token
+    decode runs the paged-decode kernel, and self-attention with no cache
+    (whose positions must be arange(S)) the flash-attention kernel."""
     B, S, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ p["wq"].to(x.dtype)
@@ -255,19 +257,41 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     k = rope(k, positions, cfg.rope_theta)
 
     attn_table = None
+    # a chunk written into a ring first could evict keys still inside its
+    # earliest queries' windows: such a chunk attends over [the ring
+    # before the write ∥ the chunk] (position masks make the union exact:
+    # old entries hold older positions or -1).  The cache is written in
+    # place, so the ring is copied before the write.
+    old = None
     if cache is not None and table is not None:
         if isinstance(table, dict):
-            table = table["attn"]
-        paged_cache_update(cache, k, v, positions, table)
-        k, v, kv_pos = cache["k"], cache["v"], cache["pos"]
-        attn_table = table
+            table = table["swa" if window > 0 else "attn"]
+        page = cache["k"].shape[1]
+        if window > 0:
+            nb = swa_ring_blocks(window, page, table.shape[1])
+            tab, ring = table[:, :nb].contiguous(), nb * page
+        else:
+            tab, ring = table, 0
+        if masked_slots and S > 1 and window > 0:
+            old = (gather_pages(cache["k"], tab), gather_pages(cache["v"], tab),
+                   gather_pos(cache["pos"], tab))       # copies
+        paged_cache_update(cache, k, v, positions, tab, ring=ring)
+        if old is None:
+            k, v, kv_pos = cache["k"], cache["v"], cache["pos"]
+            attn_table = tab
     elif cache is not None:
+        if masked_slots and S > 1 and window > 0:
+            old = tuple(cache[n].clone() for n in ("k", "v", "pos"))
         full_k, full_v, kv_pos, _ = cache_update(cache, k, v, positions,
                                                  per_row=masked_slots)
-        if S <= cache["k"].shape[1]:
-            k, v = full_k, full_v
-        else:
-            kv_pos = positions
+        if old is None:
+            if S <= cache["k"].shape[1]:
+                k, v = full_k, full_v
+            else:
+                # a sliding-window prefill longer than the ring: the ring
+                # serves later decode; attend over the sequence's own
+                # keys (the window mask makes it exact)
+                kv_pos = positions
     else:
         kv_pos = positions
         if use_kernel:
@@ -283,6 +307,10 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                                       causal=True, window=window)
             out = out.transpose(1, 2).reshape(B, S, hq * hd)
             return row_dot(out, p["wo"]), cache
+    if old is not None:
+        k = torch.cat([old[0], k.to(old[0].dtype)], dim=1)
+        v = torch.cat([old[1], v.to(old[1].dtype)], dim=1)
+        kv_pos = torch.cat([old[2], positions], dim=1)
     out = attention(q, k, v, positions, kv_pos, window=window,
                     softcap=cfg.logits_softcap, kv_chunk=kv_chunk,
                     table=attn_table, use_kernel=use_kernel)
@@ -314,7 +342,8 @@ def paged_cache_init(num_blocks: int, page_size: int, n_kv: int,
 
 def ring_write(buf: torch.Tensor, val: torch.Tensor, positions: torch.Tensor,
                per_row: bool = False, *,
-               table: Optional[torch.Tensor] = None) -> torch.Tensor:
+               table: Optional[torch.Tensor] = None,
+               ring: int = 0) -> torch.Tensor:
     """Write ``val`` into ``buf`` in place; returns ``buf``.
 
     buf: (B, T, ...); val: (B, S, ...); positions: (B, S).  The four
@@ -327,17 +356,23 @@ def ring_write(buf: torch.Tensor, val: torch.Tensor, positions: torch.Tensor,
     * S > 1, per_row=True: each row writes entry i at slot
       (positions[b, 0] % T + i) % T where its position is >= 0;
     * table given (paged pool, buf (N, page, ...)): entry (b, i) writes
-      ``pool[table[b, pos // page], pos % page]``.  Entries with position
-      < 0, past the table or on an unallocated (-1) page are dropped —
-      filtered, never clamped.  (The JAX version's SWA ring argument
-      waits for the sliding-window slice.)"""
+      ``pool[table[b, logical // page], logical % page]`` with ``logical
+      = pos % ring`` on sliding-window ring pages (``ring`` > 0) and
+      ``logical = pos`` otherwise; of a chunk longer than the ring (or
+      the table) only the last ``cap`` entries survive.  Entries with
+      position < 0, past the table or on an unallocated (-1) page are
+      dropped — filtered, never clamped."""
     if table is not None:
         page = buf.shape[1]
         n_cols = table.shape[1]
-        col = torch.div(positions, page, rounding_mode="floor")
+        cap = ring if ring else n_cols * page
+        if val.shape[1] > cap:
+            val, positions = val[:, -cap:], positions[:, -cap:]
+        logical = positions % cap if ring else positions
+        col = torch.div(logical, page, rounding_mode="floor")
         blk = torch.gather(table, 1, col.clamp(0, n_cols - 1).long())
         ok = (positions >= 0) & (col < n_cols) & (blk >= 0)
-        _masked_put(buf, blk.long() * page + positions % page, val, ok)
+        _masked_put(buf, blk.long() * page + logical % page, val, ok)
         return buf
     T = buf.shape[1]
     S = val.shape[1]
@@ -395,12 +430,14 @@ def cache_update(cache: dict, k: torch.Tensor, v: torch.Tensor,
 
 
 def paged_cache_update(cache: dict, k: torch.Tensor, v: torch.Tensor,
-                       positions: torch.Tensor, table: torch.Tensor) -> dict:
+                       positions: torch.Tensor, table: torch.Tensor, *,
+                       ring: int = 0) -> dict:
     """Scatter S new entries into the paged pool through the block table,
-    in place (position -1 and unallocated pages are write no-ops)."""
-    ring_write(cache["k"], k, positions, table=table)
-    ring_write(cache["v"], v, positions, table=table)
-    ring_write(cache["pos"], positions, positions, table=table)
+    in place (position -1 and unallocated pages are write no-ops);
+    ``ring`` > 0: sliding-window ring pages (see ``ring_write``)."""
+    ring_write(cache["k"], k, positions, table=table, ring=ring)
+    ring_write(cache["v"], v, positions, table=table, ring=ring)
+    ring_write(cache["pos"], positions, positions, table=table, ring=ring)
     return cache
 
 

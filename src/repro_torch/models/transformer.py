@@ -1,5 +1,5 @@
-"""Decoder model of the port: full-attention (GQA or MLA), Mamba or RWKV6
-layers with SwiGLU or mixture-of-experts FFNs, the embedding frontend
+"""Decoder model of the port: full-attention (GQA or MLA), sliding-window,
+Mamba or RWKV6 layers with SwiGLU or mixture-of-experts FFNs, the embedding frontend
 stub and the multi-token-prediction head, built from a ``ModelConfig``
 like ``repro.models.transformer``.
 
@@ -21,7 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.models import mla, ssm
-from repro_torch.models.config import (ATTN, DENSE, MAMBA, MOE, RWKV,
+from repro_torch.models.config import (ATTN, DENSE, MAMBA, MOE, RWKV, SWA,
                                        ModelConfig)
 from repro_torch.models.layers import (attn_apply, attn_init, cache_init,
                                        dense_init, embed_init, ffn_apply,
@@ -32,10 +32,12 @@ from repro_torch.tree import leaves
 
 
 def _check_layer(spec) -> None:
-    if spec.mixer not in (ATTN, MAMBA, RWKV) or spec.ffn not in (DENSE, MOE):
+    if spec.mixer not in (ATTN, SWA, MAMBA, RWKV) or spec.ffn not in (DENSE,
+                                                                       MOE):
         raise NotImplementedError(
-            f"repro_torch: layer {spec} is not ported yet (full-attention, "
-            f"Mamba and RWKV6 layers with dense or MoE FFNs only)")
+            f"repro_torch: layer {spec} is not ported (full-attention, "
+            f"sliding-window, Mamba and RWKV6 layers with dense or MoE FFNs "
+            f"only)")
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -50,8 +52,9 @@ def check_ported(cfg: ModelConfig) -> None:
 def layer_init(gen: torch.Generator, spec, cfg: ModelConfig, lead=(),
                device=None) -> dict:
     _check_layer(spec)
-    mixer_init = {ATTN: mla.mla_init if cfg.use_mla else attn_init,
-                  MAMBA: ssm.mamba_init, RWKV: ssm.rwkv_init}[spec.mixer]
+    attn = mla.mla_init if cfg.use_mla else attn_init
+    mixer_init = {ATTN: attn, SWA: attn, MAMBA: ssm.mamba_init,
+                  RWKV: ssm.rwkv_init}[spec.mixer]
     mixer = mixer_init(gen, cfg, lead, device)      # drawn before the FFN
     ffn = (moe_init(gen, cfg, lead, device) if spec.ffn == MOE
            else ffn_init(gen, cfg, lead=lead, device=device))
@@ -62,17 +65,29 @@ def layer_init(gen: torch.Generator, spec, cfg: ModelConfig, lead=(),
 
 def layer_cache_init(spec, cfg: ModelConfig, batch: int, cache_len: int,
                      dtype=torch.bfloat16, *, paged: bool = False,
-                     page_size: int = 16, num_blocks: int = 0, lead=(),
+                     page_size: int = 16, num_blocks: int = 0,
+                     num_blocks_swa: Optional[int] = None, lead=(),
                      device=None) -> dict:
     """Dense per-slot KV cache, or (``paged=True``) a block pool of
     ``num_blocks`` pages shared through the block table.  Mamba and RWKV
     state is per slot either way (a recurrent carry has no sequence axis
-    to page).  MLA layers keep the latent cache ("ckv", "krope", "pos")."""
+    to page).  MLA layers keep the latent cache ("ckv", "krope", "pos").
+    A sliding-window layer keeps a dense ring of ``min(window,
+    cache_len)`` entries, or a pool of ``num_blocks_swa`` pages, its own
+    block-id space (required when ``paged``)."""
     _check_layer(spec)
     if spec.mixer == MAMBA:
         return ssm.mamba_cache_init(batch, cfg, dtype, lead, device)
     if spec.mixer == RWKV:
         return ssm.rwkv_cache_init(batch, cfg, dtype, lead, device)
+    if spec.mixer == SWA:
+        if paged:
+            if num_blocks_swa is None:
+                raise ValueError("a paged sliding-window layer needs "
+                                 "num_blocks_swa, its ring pool's pages")
+            num_blocks = num_blocks_swa
+        else:
+            cache_len = min(cfg.sliding_window, cache_len)
     if cfg.use_mla:
         if paged:
             return mla.mla_paged_cache_init(num_blocks, page_size, cfg,
@@ -116,8 +131,9 @@ def layer_apply(lp: dict, spec, cfg: ModelConfig, x: torch.Tensor,
                                  masked_slots=masked_slots,
                                  table=block_table, use_kernel=use_kernel)
     else:
+        window = cfg.sliding_window if spec.mixer == SWA else 0
         h, cache = attn_apply(lp["mixer"], h, cfg, positions=positions,
-                              cache=cache, kv_chunk=kv_chunk,
+                              cache=cache, window=window, kv_chunk=kv_chunk,
                               masked_slots=masked_slots, table=block_table,
                               use_kernel=use_kernel)
     x = x + h
@@ -173,18 +189,21 @@ def init_params(seed: int, cfg: ModelConfig, *,
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, *, paged: bool = False,
                page_size: int = 16, num_blocks: Optional[int] = None,
+               num_blocks_swa: Optional[int] = None,
                device: DeviceLike = None) -> dict:
     """Decode-cache tree.  ``paged=True`` replaces the dense per-slot
     (batch, cache_len, ...) caches with per-layer block pools of
-    ``num_blocks`` pages (default: the dense cache's memory).  Stack
-    leaves get REAL per-period storage (n_periods, ...): an ``expand``
-    would alias every period and in-place writes would corrupt them."""
+    ``num_blocks`` pages (default: the dense cache's memory);
+    ``num_blocks_swa`` sizes the sliding-window pools, a block-id space
+    of their own (required when ``paged`` and the model has such layers).  Stack leaves get REAL per-period storage (n_periods,
+    ...): an ``expand`` would alias every period and in-place writes
+    would corrupt them."""
     check_ported(cfg)
     dev = resolve_device(device)
     if num_blocks is None:
         num_blocks = max(1, -(-batch * cache_len // page_size))
     kw = dict(paged=paged, page_size=page_size, num_blocks=num_blocks,
-              device=dev)
+              num_blocks_swa=num_blocks_swa, device=dev)
     caches = {}
     if cfg.prefix_layers:
         caches["prefix"] = tuple(

@@ -1,8 +1,9 @@
-"""The configs the port admits with its MLA slice, against the JAX
-package: qwen3-moe-235b-a22b (attention + top-8 MoE), bert-large (dense
-MHA, used causally), llava-next-mistral-7b and musicgen-medium (the
-frontend stub's precomputed embeddings through ``ext_proj``) and
-deepseek-v3-671b (MLA + MoE + MTP).
+"""The configs the port admits with its MLA and sliding-window slices,
+against the JAX package: qwen3-moe-235b-a22b (attention + top-8 MoE),
+bert-large (dense MHA, used causally), llava-next-mistral-7b and
+musicgen-medium (the frontend stub's precomputed embeddings through
+``ext_proj``), deepseek-v3-671b (MLA + MoE + MTP) and gemma3-12b (five
+sliding-window layers to one global one).
 
 Full and smoke configs equal the JAX ones field by field.  One smoke
 forward's logits equal JAX's on converted parameters, with "embeds" fed
@@ -11,8 +12,7 @@ of the logits' scale; the MoE model in float32 activations (the
 embedding upcast), within 2e-5, since MoE routing turns bfloat16
 rounding into another expert now and then.  The dense models' greedy
 engine tokens (tokens only, as the JAX engine serves them) equal JAX
-``generate()``'s.  ``gemma3-12b`` (sliding-window attention) is still
-refused.
+``generate()``'s.
 """
 from dataclasses import asdict
 
@@ -37,8 +37,9 @@ from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serve import engine as TE  # noqa: E402
 
 NEW = ["qwen3-moe-235b-a22b", "bert-large", "llava-next-mistral-7b",
-       "musicgen-medium", "deepseek-v3-671b"]
-DENSE = ["bert-large", "llava-next-mistral-7b", "musicgen-medium"]
+       "musicgen-medium", "deepseek-v3-671b", "gemma3-12b"]
+DENSE = ["bert-large", "llava-next-mistral-7b", "musicgen-medium",
+         "gemma3-12b"]
 
 
 def _np(tree):
@@ -52,14 +53,7 @@ def test_configs_equal_the_jax_ones(arch):
     assert asdict(get_smoke_config(arch)) == asdict(jax_smoke(arch))
 
 
-def test_only_gemma3_is_still_refused():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("gemma3-12b")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_smoke_config("gemma3-12b")
-
-
-@pytest.mark.parametrize("arch", NEW[:4])
+@pytest.mark.parametrize("arch", NEW[:4] + NEW[5:])
 def test_smoke_forward_logits_match_jax(arch):
     cfg = jax_smoke(arch)
     jp = JT.init_params(jax.random.PRNGKey(1), cfg)

@@ -281,4 +281,6 @@ print(" ".join(mods))
             "repro_torch.core.decomposer", "repro_torch.core.scheduler",
             "repro_torch.core.pipeline", "repro_torch.core.dht",
             "repro_torch.core.broker", "repro_torch.core.compression",
-            "repro_torch.core.executor"} <= mods
+            "repro_torch.core.executor", "repro_torch.serve.router",
+            "repro_torch.serve.faults", "repro_torch.configs.gemma3_12b"
+            } <= mods

@@ -286,10 +286,17 @@ def test_attn_apply_paged_matches_jax_with_qk_norm_and_bias(S):
 
 
 def test_attn_apply_sliding_window_not_ported():
+    """Sliding-window attention is ported now (``test_torch_swa.py`` holds
+    its cache paths): the no-cache windowed branch matches JAX's, the
+    flash path (its plain version on the CPU) and the scan path alike."""
     cfg = tiny_cfg()
-    tp = params_from_jax(jax.tree.map(
-        np.asarray, J.attn_init(jax.random.PRNGKey(0), cfg)), "cpu")
-    x = torch.zeros(1, 2, cfg.d_model, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        T.attn_apply(tp, x, cfg, positions=torch.zeros(1, 2, dtype=torch.int32),
-                     window=8)
+    jp = J.attn_init(jax.random.PRNGKey(0), cfg)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    x = np.random.RandomState(5).standard_normal((2, 24, cfg.d_model))
+    pos = np.broadcast_to(np.arange(24, dtype=np.int32), (2, 24))
+    jx, tx = both(x)
+    exp, _ = J.attn_apply(jp, jx, cfg, positions=jnp.asarray(pos), window=8)
+    for use_kernel in (True, False):
+        out, _ = T.attn_apply(tp, tx, cfg, positions=torch.from_numpy(
+            pos.copy()), window=8, use_kernel=use_kernel)
+        close(out, exp)

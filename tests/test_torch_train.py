@@ -279,6 +279,24 @@ def test_train_step_matches_jax(arch):
                                rtol=1e-5)
 
 
+def test_gemma3_train_step_matches_jax():
+    """gemma3-12b's smoke config (a sliding-window layer of window 64 and
+    a global one) over 96-token sequences, longer than the window: the
+    loss, grad norm and gradients of one SGD step equal JAX's, through
+    the flash path (the windowed no-cache branch) and the scan path."""
+    jcfg, tcfg, jp, batch, tbatch = _step_case("gemma3-12b", B=2, S=96)
+    assert jcfg.sliding_window == 64
+    jgrads = jax.jit(jax.grad(lambda p: JS.loss_fn(p, jcfg, batch)[0]))(jp)
+    jloss = float(jax.jit(lambda p: JS.loss_fn(p, jcfg, batch)[0])(jp))
+    for use_kernel in (True, False):
+        tp = trainable(params_from_jax(_np(jp), device="cpu"))
+        loss, _ = TS.loss_fn(tp, tcfg, tbatch, use_kernel=use_kernel)
+        np.testing.assert_allclose(loss.item(), jloss, rtol=1e-5)
+        for t, j in zip(leaves(TS.grads_of(tp, loss)),
+                        jax.tree.leaves(jgrads)):
+            _close_at_scale(t, j, 1e-4, f"grad, use_kernel={use_kernel}")
+
+
 def _sgd_grads(tcfg, params, batch, **kw):
     """The gradient one ``make_train_step`` step applied, read back from
     an SGD update with lr 1 and no clip: g = p_before - p_after."""

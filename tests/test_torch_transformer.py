@@ -75,11 +75,9 @@ def model(request):
 
 def test_smoke_and_full_configs_equal_the_jax_ones():
     from repro.configs import get_config as jax_full
-    for arch in ARCHS + ["llama3-405b", "qwen1.5-32b"]:
+    for arch in ARCHS + ["llama3-405b", "qwen1.5-32b", "gemma3-12b"]:
         assert asdict(get_config(arch)) == asdict(jax_full(arch))
         assert asdict(get_smoke_config(arch)) == asdict(jax_smoke(arch))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("gemma3-12b")
 
 
 def test_forward_prefill_then_decode_matches_jax(model):
@@ -176,6 +174,19 @@ def test_transformer_module_owns_params_under_jax_keys(model):
     torch.testing.assert_close(m({"tokens": toks})[0],
                                TT.forward(tp, cfg, {"tokens": toks})[0],
                                atol=0, rtol=0)
+
+
+def test_paged_sliding_window_cache_needs_its_own_pool():
+    """A paged sliding-window layer's ring pool is a block-id space of its
+    own: ``init_cache`` refuses to build one without ``num_blocks_swa``
+    and sizes it by that count, the global layers by ``num_blocks``."""
+    cfg = get_smoke_config("gemma3-12b")
+    with pytest.raises(ValueError, match="num_blocks_swa"):
+        TT.init_cache(cfg, 2, 32, paged=True, page_size=8, device="cpu")
+    c = TT.init_cache(cfg, 2, 32, paged=True, page_size=8, num_blocks=9,
+                      num_blocks_swa=5, device="cpu")
+    sizes = sorted(layer["k"].shape[1] for layer in c["stack"])
+    assert sizes == [5, 9]
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "jamba-1.5-large-398b"])

@@ -24,14 +24,23 @@ failure:
    gemma3-12b's (16 q / 8 kv heads of 256): a wrapped 64-column ring
    with window 1024 whose oldest positions lie below the window, and a
    128-column table, bf16 and f32, against the plain version and the
-   split-K mirror, -1 columns neutral bit for bit, idle slots zero;
+   split-K mirror, -1 columns neutral bit for bit, idle slots zero.  2d
+   holds the port's threefry sampling on the card against the same calls
+   on the CPU: bits and uniforms of an (8, 151936) draw from 8 raw keys
+   bit for bit, gumbel noise within 2.4e-7 x max(1, |g|), and
+   ``topp_sample`` over rows of mixed temperature / top-p / top-k picking
+   the CPU's tokens in 8 draws (a differing token only where the CPU's
+   two best Gumbel scores tie within that tolerance, reported);
 3. serve qwen3-8b at full width (random bf16 weights drawn on the card)
    through ``ServingEngine(paged=True, use_kernel=True)``: 16 requests,
-   half sharing a 256-token system prompt, two sampled.  Every decode
+   half sharing a 256-token system prompt, two sampled through the
+   threefry ``topp_sample`` (at most 2 rows a draw, at least their 2 x 32
+   tokens' rows).  Every decode
    tick must have gone through the kernel (launches == decode_calls x
    36), and one decode tick on a served state must give the same logits
    through the kernel and through the scan path (within the bf16
-   tolerance 2e-2, relative to the logit scale);
+   tolerance 2e-2, relative to the logit scale); the ms of decode ticks
+   with and without a sampling slot are printed apart;
 4. time serving (CUDA events around each engine step) and the kernel at
    the served shape beside its bound, its plain version and
    ``F.scaled_dot_product_attention`` on the gathered K/V (a yardstick
@@ -131,7 +140,9 @@ failure:
    T > S) and at the training shape of qwen3-8b (B=2, S=4096, GQA 32 / 8
    heads of 128) with and without a 1,024-token window, each in bf16
    (the tensor-core instance) and f32 (the CUDA-core instance): output
-   bf16 within 2e-2, f32 within 1e-4, logsumexp within 1e-4; then autograd
+   bf16 within 2e-2, f32 within 1e-4, logsumexp within 1e-4 (also at
+   gemma3-12b's training shapes: 16 q / 8 kv heads of 256, S = 4096,
+   window 1024 and causal); then autograd
    through the port's flash attention (kernel forward, plain blocked
    backward) against autograd through the plain version, f32, each
    gradient within 1e-4 of its scale;
@@ -142,10 +153,28 @@ failure:
    7), the losses must be finite and the last below the first; step 0
    through the kernel and through the plain scan attention must agree
    in loss, grad norm and gradients (``STEP0_TOL``, set from a measured
-   rounding floor).  Prints step ms, tokens/s, MFU and peak memory;
+   rounding floor).  Prints step ms, tokens/s, MFU and peak memory.
+   12b: the same scenario for 3 steps under each remat policy ("full",
+   "dots_no_batch", "dots"): flash launches == 16 a step under each,
+   step 0's loss and grad norm equal "full"'s within ``STEP0_TOL``; ms
+   per step and peak memory printed.  12c: gemma3-12b trained the same
+   way at full width, one period of its 48 layers (5 sliding-window of
+   window 1024 + 1 global, 2.35 B parameters), 5 steps: flash launches
+   == 12 a step, 10 of them with the window, step 0 kernel vs plain
+   within ``STEP0_TOL``, falling loss.  12d: the scan kernels have no
+   backward: one training step (``loss_fn`` + gradients, B=2, S=512)
+   with ``use_kernel=True`` on jamba-1.5-large's attention and first
+   dense Mamba layer and on two rwkv6-7b layers, at full width in float32
+   activations, launches no scan kernel and matches the all-plain path
+   within 1e-4 (loss, grad norm, gradients); ``ops.mamba_scan`` /
+   ``ops.rwkv_scan`` on CUDA inputs that require grad raise, and launch
+   under ``torch.no_grad()``;
 13. time the flash kernel at the training shape beside its bound, its
    plain version and ``F.scaled_dot_product_attention`` (a yardstick
-   only; the port never calls it);
+   only; the port never calls it); 13b at gemma3-12b's two training
+   shapes (D = 256, window 1024 and causal) by device time, SDPA with
+   ``enable_gqa=True`` (the window as a boolean mask) and its backend
+   named;
 14. hold the int8 block quantization kernels (``int8_quantize`` /
    ``int8_dequantize``) against their plain versions: the sweep of
    ``tests/test_kernels.py`` (n 17..4096, f32 and bf16, block 256 and
@@ -176,9 +205,10 @@ failure:
    Bus bytes per link and each compnode's FP / BP ms beside the paper's
    Eq. 1 estimate for an h100 ``CompNode``.
 
-The phases run in the order 1-2c, 10c, 5, 11 (the kernel checks), 3-4,
-6-7, 8-10b, 9b, 9c-9e, 12-13, 14 (the sweep), 15, 14 (the large run and
-times); each model is freed before the next is drawn.  The total time
+The phases run in the order 1-2c, 10c, 5, 11, 13b (the kernel checks
+and the times a profiler takes before serving), 2d, 3-4, 6-7, 8-10b, 9b,
+9c-9e, 12-12d, 13, 14 (the sweep), 15, 14 (the large run and times);
+each model is freed before the next is drawn.  The total time
 is printed before the result lines.
 
 Output: human-readable lines, then one JSON line ``{"kernels": [...]}``,
@@ -384,6 +414,94 @@ def phase_kernel_vs_plain(fwd, ref):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2d: the port's threefry sampling on the card
+# ---------------------------------------------------------------------------
+
+SAMPLE_ROWS, SAMPLE_V = 8, 151936     # 8 slots over qwen3-8b's vocabulary
+SAMPLE_DRAWS = 8
+# each row's temperature, top-p and top-k (0 = no cut): plain, nucleus,
+# top-k, both, greedy by top-k 1
+SAMPLE_TEMP = (1.0, 0.8, 0.7, 1.2, 0.9, 1.0, 0.6, 1.5)
+SAMPLE_TOP_P = (1.0, 0.95, 0.9, 1.0, 0.5, 0.99, 1.0, 0.8)
+SAMPLE_TOP_K = (0, 50, 0, 20, 0, 0, 1, 100)
+GUMBEL_TOL = 2.4e-7   # x max(1, |g|): two ulps (tests/test_torch_prng.py)
+
+
+def phase_sampling_bits():
+    """Threefry bits and uniforms of an (8, 151936) draw from 8 raw keys
+    on the card equal the same call on the CPU bit for bit, and the gumbel
+    noise lies within ``GUMBEL_TOL`` of the CPU's (two logs, each the
+    device's own); ``topp_sample`` on the card picks the CPU's tokens for
+    fixed float32 logits over rows of mixed temperature / top-p / top-k
+    in ``SAMPLE_DRAWS`` draws.  A token may differ only where the CPU's
+    two best Gumbel scores lie within ``GUMBEL_TOL`` of each other (a
+    tie, reported).  Prints one draw's device time."""
+    from repro_torch import prng
+    from repro_torch.models.layers import NEG_INF
+    from repro_torch.serve.engine import topp_sample
+    rng = np.random.default_rng(0)
+
+    def keys_of(draw):
+        return torch.from_numpy(rng.integers(
+            0, 2 ** 32, (SAMPLE_ROWS, 2), dtype=np.uint64).astype(np.int64))
+    keys = keys_of(0)
+    shape = (SAMPLE_V,)
+    for what, fn in (("bits", prng.random_bits), ("uniforms", prng.uniform)):
+        a, b = fn(keys, shape), fn(keys.cuda(), shape).cpu()
+        same = (torch.equal(a, b) if what == "bits" else
+                torch.equal(a.view(torch.int32), b.view(torch.int32)))
+        if not same:
+            fail(f"threefry {what} on the card differ from the CPU's")
+    g_cpu, g = prng.gumbel(keys, shape), prng.gumbel(keys.cuda(), shape).cpu()
+    g_err = ((g.double() - g_cpu.double()).abs()
+             / g_cpu.double().abs().clamp(min=1.0)).max().item()
+    if not g_err <= GUMBEL_TOL:
+        fail(f"gumbel on the card vs the CPU: {g_err} x max(1, |g|)")
+    logits = torch.from_numpy(
+        rng.standard_normal((SAMPLE_ROWS, SAMPLE_V)).astype(np.float32) * 3)
+    opts = [torch.tensor(SAMPLE_TEMP), torch.tensor(SAMPLE_TOP_P),
+            torch.tensor(SAMPLE_TOP_K, dtype=torch.int32)]
+    opts_gpu = [t.cuda() for t in opts]
+    ties, rows = 0, 0
+    for draw in range(SAMPLE_DRAWS):
+        k = keys_of(draw)
+        cpu = topp_sample(k, logits, *opts)[:, 0]
+        gpu = topp_sample(k.cuda(), logits.cuda(), *opts_gpu)[:, 0].cpu()
+        rows += SAMPLE_ROWS
+        for r in torch.nonzero(cpu != gpu)[:, 0].tolist():
+            # the CPU's Gumbel scores over the row's kept tokens, as
+            # topp_sample forms them
+            lg = logits[r] / opts[0][r]
+            order = torch.argsort(-lg, stable=True)
+            slg = lg[order]
+            p = torch.softmax(slg, dim=-1)
+            keep = (torch.cumsum(p, -1) - p) < opts[1][r]
+            if opts[2][r] > 0:
+                keep &= torch.arange(SAMPLE_V) < opts[2][r]
+            score = (prng.gumbel(k[r], shape)
+                     + torch.where(keep, slg, NEG_INF)).topk(2).values
+            gap = (score[0] - score[1]).item()
+            if gap > GUMBEL_TOL * max(1.0, abs(score[0].item())):
+                fail(f"topp_sample draw {draw} row {r}: card token "
+                     f"{gpu[r].item()} vs CPU {cpu[r].item()}, Gumbel "
+                     f"score gap {gap}")
+            ties += 1
+            print(f"topp_sample draw {draw} row {r}: a tie (gap {gap:.3e})")
+    k = keys_of(SAMPLE_DRAWS).cuda()
+    lg = logits.cuda()
+    ms = device_ms(lambda i: topp_sample(k, lg, *opts_gpu), 20)
+    call_ms = event_ms(lambda i: topp_sample(k, lg, *opts_gpu), 20)
+    print(f"threefry on the card vs the CPU, (8, 151936) from 8 raw keys: "
+          f"bits and uniforms bit for bit, gumbel within {g_err:.3e} x "
+          f"max(1, |g|) (tol {GUMBEL_TOL}); topp_sample {rows - ties} of "
+          f"{rows} rows the CPU's token, {ties} ties; one (8, 151936) draw "
+          f"{ms:.3f} ms of device time ({call_ms:.3f} ms per call back to "
+          f"back)")
+    return {"gumbel_err": g_err, "ties": ties, "rows": rows,
+            "topp_sample_ms": ms, "topp_sample_call_ms": call_ms}
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: full-width serving
 # ---------------------------------------------------------------------------
 
@@ -409,17 +527,18 @@ def make_requests(Request, vocab, seed=0):
 
 def time_steps(eng):
     """Wrap the engine's step with CUDA events; returns the record list
-    of (start, end, S, valid tokens)."""
+    of (start, end, S, valid tokens, whether a live slot samples)."""
     rec = []
     step = eng._call_step
 
     def timed(toks, pos):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        sampled = bool((eng._temp[(pos >= 0).any(axis=1)] > 0).any())
         a.record()
         out = step(toks, pos)
         b.record()
-        rec.append((a, b, toks.shape[1], int((pos >= 0).sum())))
+        rec.append((a, b, toks.shape[1], int((pos >= 0).sum()), sampled))
         return out
     eng._call_step = timed
     return rec
@@ -435,8 +554,11 @@ def reset_counts(kernels) -> None:
 def serving_times(rec, wall):
     """Prefill / decode rates from the CUDA-event records of a served run,
     its wall time and the peak device memory; printed and returned."""
-    pre = [(a.elapsed_time(b), n) for a, b, S, n in rec if S > 1]
-    dec = [(a.elapsed_time(b), n) for a, b, S, n in rec if S == 1]
+    pre = [(a.elapsed_time(b), n) for a, b, S, n, _ in rec if S > 1]
+    dec = [(a.elapsed_time(b), n) for a, b, S, n, _ in rec if S == 1]
+    # decode ticks with a sampling slot (the threefry draw) and without
+    hot = [a.elapsed_time(b) for a, b, S, _, x in rec if S == 1 and x]
+    cold = [a.elapsed_time(b) for a, b, S, _, x in rec if S == 1 and not x]
     timing = {
         "prefill_tok_s": sum(n for _, n in pre) / sum(t for t, _ in pre) * 1e3,
         "decode_tok_s": sum(n for _, n in dec) / sum(t for t, _ in dec) * 1e3,
@@ -445,6 +567,11 @@ def serving_times(rec, wall):
         "wall_s": wall,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+    if hot:
+        timing["ms_per_sampled_decode_tick"] = sum(hot) / len(hot)
+        timing["sampled_decode_ticks"] = len(hot)
+    if hot and cold:
+        timing["ms_per_greedy_decode_tick"] = sum(cold) / len(cold)
     print("serving: " + ", ".join(f"{k}={v}" for k, v in timing.items()))
     return timing
 
@@ -452,6 +579,7 @@ def serving_times(rec, wall):
 def phase_serve(fwd, kernels):
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import forward, init_params, unembed
+    from repro_torch.serve import engine as engine_mod
     from repro_torch.serve.engine import Request, ServingEngine
 
     cfg = get_config("qwen3-8b")
@@ -470,11 +598,21 @@ def phase_serve(fwd, kernels):
     for r in reqs:
         eng.submit(r)
     rec = time_steps(eng)
+    draws = []                           # the sampled slots of each draw
+    topp_sample = engine_mod.topp_sample
+
+    def counted(keys, logits, *args):
+        draws.append(keys.shape[0])
+        return topp_sample(keys, logits, *args)
+    engine_mod.topp_sample = counted
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kernels)                # count only the main path's run
     torch.cuda.synchronize()
     t0 = time.time()
-    done = eng.run()
+    try:
+        done = eng.run()
+    finally:
+        engine_mod.topp_sample = topp_sample
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = fwd.launches
@@ -482,6 +620,12 @@ def phase_serve(fwd, kernels):
     n_layers = cfg.n_layers
     if len(done) != 16 or any(len(r.generated) != 32 for r in done):
         fail("not every request finished with 32 tokens")
+    # requests 3 and 10 sample (their slots draw at every step while they
+    # hold a temperature, the others are greedy): at least their 2 x 32
+    # tokens' rows, at most 2 rows a draw
+    if sum(draws) < 2 * 32 or max(draws) > 2:
+        fail(f"{sum(draws)} sampled rows in {len(draws)} draws (at most "
+             f"{max(draws, default=0)} a draw): not requests 3 and 10's")
     if any(not 0 <= t < cfg.vocab_size for r in done for t in r.generated):
         fail("a generated token lies outside the vocabulary")
     if st["shared_pages"] <= 0:
@@ -493,7 +637,8 @@ def phase_serve(fwd, kernels):
           f"{st['prefill_calls']} prefill calls, {st['decode_calls']} decode "
           f"ticks, {st['shared_pages']} shared pages, {st['cow_copies']} CoW, "
           f"{st['backpressure']} backpressure; kernel launches {launches} "
-          f"= {st['decode_calls']} x {n_layers}")
+          f"= {st['decode_calls']} x {n_layers}; {len(draws)} threefry "
+          f"draws of {sum(draws)} sampled rows (requests 3 and 10)")
     timing = serving_times(rec, wall)
 
     # one decode tick on a served state: kernel path vs scan path logits
@@ -2525,6 +2670,10 @@ FLASH_SWEEP = [  # (B, Hq, Hkv, S, T, D, window): tests/test_kernels.py:17-34
 ]
 FLASH_TRAIN = (2, 32, 8, 4096, 4096, 128, 0)     # qwen3-8b, B=2, S=4096
 FLASH_WINDOW = (2, 32, 8, 4096, 4096, 128, 1024)  # the same, window 1024
+# gemma3-12b trained at B=2, S=4096: its sliding-window layers (window
+# 1024) and its global layers, 16 q / 8 kv heads of 256
+FLASH_GEMMA = (2, 16, 8, 4096, 4096, 256, 1024)
+FLASH_GEMMA_CAUSAL = (2, 16, 8, 4096, 4096, 256, 0)
 
 
 def flash_case(B, Hq, Hkv, S, T, D, *, seed, dtype):
@@ -2547,7 +2696,9 @@ def phase_flash_vs_plain(fwd, ref):
     """The kernel's output (bf16 within 2e-2, f32 within 1e-4) and
     logsumexp (within 1e-4: the scores are exact float32 products of the
     inputs in both dtypes) against the plain version, over the sweep of
-    test_kernels.py and at the training and windowed full-width shapes."""
+    test_kernels.py and at the full-width training shapes: qwen3-8b's
+    (causal and with a 1,024-token window) and gemma3-12b's (D = 256,
+    window 1024 and causal)."""
     worst = {}
     for dname, dtype in (("bfloat16", torch.bfloat16),
                          ("float32", torch.float32)):
@@ -2568,7 +2719,9 @@ def phase_flash_vs_plain(fwd, ref):
     # average over up to 4096 randn rows), so bf16's 2e-2 alone would let
     # an error in P.V through; float32 at 1e-4 holds the accumulator.
     errs = {}
-    for name, shape in (("training", FLASH_TRAIN), ("window 1024", FLASH_WINDOW)):
+    for name, shape in (("training", FLASH_TRAIN), ("window 1024", FLASH_WINDOW),
+                        ("gemma3 window 1024", FLASH_GEMMA),
+                        ("gemma3 causal", FLASH_GEMMA_CAUSAL)):
         B, Hq, Hkv, S, T, D, window = shape
         for dname, dtype in (("bfloat16", torch.bfloat16),
                              ("float32", torch.float32)):
@@ -2680,6 +2833,65 @@ def phase_flash_times(fwd, ref):
             "plain_backward_ms": backward_ms}
 
 
+def phase_flash_gemma_times(fwd, ref):
+    """Phase 13b: the kernel at gemma3-12b's training shapes (D = 256,
+    window 1024 and causal), bf16, by device time (the event time per
+    back-to-back call beside it), beside its bound, its plain version and
+    ``F.scaled_dot_product_attention`` on the same inputs with
+    ``enable_gqa=True`` (the window as a boolean mask; causal by
+    ``is_causal``), whose backend is named by its kernels."""
+    import torch.nn.functional as F
+    res = {}
+    for name, shape in (("window 1024", FLASH_GEMMA),
+                        ("causal", FLASH_GEMMA_CAUSAL)):
+        B, Hq, Hkv, S, T, D, window = shape
+        cases = [flash_case(B, Hq, Hkv, S, T, D, seed=20 + i,
+                            dtype=torch.bfloat16) for i in range(2)]
+        out, _ = fwd(*cases[0], window=window)
+        eo = ref(*cases[0], window=window)
+        max_err = (out.float() - eo.float()).abs().max().item()
+        del eo
+        torch.cuda.empty_cache()
+        # device time first: its 20 untimed calls bring the clocks up
+        ms = device_ms(lambda i: fwd(*cases[i % 2], window=window), 10,
+                       "flash_fwd")
+        call_ms = event_ms(lambda i: fwd(*cases[i % 2], window=window), 10)
+        plain_ms = event_ms(lambda i: ref(*cases[i % 2], window=window), 2)
+        torch.cuda.empty_cache()
+        mask = None
+        if window:
+            i_ = torch.arange(S, device="cuda")[:, None]
+            j_ = torch.arange(T, device="cuda")[None, :]
+            mask = (j_ <= i_) & (j_ > i_ - window)
+
+        def sdpa(i):
+            return F.scaled_dot_product_attention(
+                *cases[i % 2], attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+        torch.testing.assert_close(sdpa(0).float(), out.float(), atol=2e-2,
+                                   rtol=2e-2)
+        backend = sdpa_backend(lambda: sdpa(0))
+        library_ms = device_ms(sdpa, 10)
+        library_call_ms = event_ms(sdpa, 10)
+        bound_ms, bound_by, byts, flops = flash_bound(*shape, 2)
+        print(f"flash_attention at gemma3-12b's training shape (B,Hq,Hkv,S,D)="
+              f"{(B, Hq, Hkv, S, D)}, bf16, {name}: kernel {ms * 1e3:.1f} us "
+              f"of device time ({call_ms * 1e3:.1f} us per call back to "
+              f"back), bound {bound_ms * 1e3:.1f} us ({bound_by}: "
+              f"{byts / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), plain "
+              f"{plain_ms * 1e3:.1f} us, sdpa {library_ms * 1e3:.1f} us of "
+              f"device time ({library_call_ms * 1e3:.1f} us per call; its "
+              f"kernels: {backend}); max abs err vs plain {max_err:.3e}")
+        res[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "max_abs_err": max_err, "call_ms": call_ms,
+                     "library_call_ms": library_call_ms,
+                     "library_backend": backend}
+        del cases, out
+        torch.cuda.empty_cache()
+    return res
+
+
 # ---------------------------------------------------------------------------
 # Phase 12: qwen3-8b trained at full width (depth cut to 8 layers)
 # ---------------------------------------------------------------------------
@@ -2687,6 +2899,13 @@ def phase_flash_times(fwd, ref):
 TRAIN_LAYERS = 8                 # of 36: 44.6 GB of state (16 B / param)
 TRAIN_B, TRAIN_S = 2, 4096       # 8192 tokens per step
 TRAIN_STEPS = 7                  # one warmup step, then six timed
+# gemma3-12b trained at full width, depth cut to one period of 5
+# sliding-window layers and 1 global (2.35 B parameters with the tied
+# 1.007 B embedding; two periods, 3.70 B at about 21 B a parameter with
+# activations as qwen3-8b's run measured, would leave under 10 of 80 GB)
+GEMMA_TRAIN_LAYERS = 6
+GEMMA_TRAIN_STEPS = 5            # one warmup step, then four timed
+REMAT_STEPS = 3                  # per policy: one warmup step, two timed
 # step 0 through the kernel vs the plain scan attention, relative to the
 # plain path's value ("grads": the L2 norm of the difference of the two
 # gradient trees over the plain one's).  The same comparison with the
@@ -2702,16 +2921,23 @@ STEP0_TOL = {"loss": 1e-4, "grad_norm": 1e-4, "grads": 2e-2}
 
 def train_flops(cfg, B, S):
     """Model flops of one training step: 6 x the matmul parameters (the
-    layers and the untied head; the embedding is a lookup) x tokens, plus
-    3 x the causal attention forward's two products (forward, and twice
-    that in the backward), as MFU counts them."""
+    layers and the head, tied or not; the embedding is a lookup) x tokens,
+    plus 3 x the causal attention forward's two products (forward, and
+    twice that in the backward) over the (query, key) pairs each layer's
+    masks keep (a sliding-window layer's window cuts them), as MFU counts
+    them."""
+    from repro_torch.models.config import SWA
     d, hd = cfg.d_model, cfg.head_dim
     per_layer = (d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
                  + 3 * d * cfg.d_ff)
     matmul_params = cfg.n_layers * per_layer + d * cfg.vocab_size
-    pairs = B * cfg.n_heads * S * (S + 1) / 2
-    attn_fwd = cfg.n_layers * pairs * 2 * 2 * hd
-    return 6 * matmul_params * B * S + 3 * attn_fwd
+    keys = torch.arange(1, S + 1, dtype=torch.float64)
+    pairs = 0.0
+    for st in cfg.stacks:
+        for spec in st.period * st.n_periods:
+            w = cfg.sliding_window if spec.mixer == SWA else S
+            pairs += B * cfg.n_heads * keys.clamp(max=w).sum().item()
+    return 6 * matmul_params * B * S + 3 * pairs * 2 * 2 * hd
 
 
 def step0_run(cfg, params, batch, use_kernel, kv_chunk=1024):
@@ -2723,7 +2949,8 @@ def step0_run(cfg, params, batch, use_kernel, kv_chunk=1024):
     from repro_torch.train.step import _head_matrix, grads_of
     from repro_torch.models.transformer import forward
     h, _, _ = forward(params, cfg, batch, remat=True, compute_logits=False,
-                      kv_chunk=kv_chunk, use_kernel=use_kernel)
+                      kv_chunk=kv_chunk, use_kernel=use_kernel,
+                      scan_kernel=False)
     loss, _ = cross_entropy_chunked(h, _head_matrix(params, cfg),
                                     batch["labels"])
     grads = grads_of(params, loss)
@@ -2765,12 +2992,12 @@ def step0_compare(cfg, params, batch):
     return d_kernel
 
 
-def profile_train_step(trainer, step_fn, loader):
-    """Device time of one more training step by kernel, under
-    ``torch.profiler``: the busy share of the step's wall time and the
-    shares of the flash kernel, the matmuls and the rest."""
+def profile_train_step(trainer, step_fn, loader, step):
+    """Device time of one more training step (batch ``step``) by kernel,
+    under ``torch.profiler``: the busy share of the step's wall time and
+    the shares of the flash kernel, the matmuls and the rest."""
     from torch.profiler import ProfilerActivity, profile
-    batch = loader.batch(TRAIN_STEPS)
+    batch = loader.batch(step)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2806,31 +3033,44 @@ def profile_train_step(trainer, step_fn, loader):
             "kernels_per_step": sum(e.count for e in kernels)}
 
 
-def phase_train(fwd, kernels):
-    """qwen3-8b at full width, 8 of 36 layers, trained through the port's
-    Trainer (adamw, cosine_lr, full remat, use_kernel) for TRAIN_STEPS
-    steps on SyntheticLM batches of 2 x 4096 tokens."""
+def train_config(arch):
+    """The training scenarios' configs: qwen3-8b with 8 of its 36 layers,
+    gemma3-12b with one period (6 of 48)."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
-    from repro_torch.models.transformer import init_params, trainable
-    from repro_torch.train.trainer import TrainConfig, Trainer
+    n = {"qwen3-8b": TRAIN_LAYERS, "gemma3-12b": GEMMA_TRAIN_LAYERS}[arch]
+    return dataclasses.replace(get_config(arch), n_layers=n)
 
-    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=TRAIN_LAYERS)
-    loader = SyntheticLM(SyntheticConfig(
+
+def train_loader(cfg):
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    return SyntheticLM(SyntheticConfig(
         vocab_size=cfg.vocab_size, seq_len=TRAIN_S, global_batch=TRAIN_B,
         noise=0.05, seed=0), device="cuda")
 
+
+def phase_train(fwd, kernels, arch="qwen3-8b", steps=TRAIN_STEPS):
+    """``arch`` at full width, depth cut (``train_config``), trained
+    through the port's Trainer (adamw, cosine_lr, full remat, use_kernel)
+    for ``steps`` steps on SyntheticLM batches of 2 x 4096 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import SWA
+    from repro_torch.models.transformer import init_params, trainable
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = train_config(arch)
+    loader = train_loader(cfg)
     params = trainable(init_params(0, cfg, device="cuda"))
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"qwen3-8b, {TRAIN_LAYERS} of 36 layers: {n_params / 1e9:.3f} B "
-          f"parameters; batch {TRAIN_B} x {TRAIN_S} tokens")
+    print(f"{arch}, {cfg.n_layers} of {get_config(arch).n_layers} layers: "
+          f"{n_params / 1e9:.3f} B parameters; batch {TRAIN_B} x {TRAIN_S} "
+          f"tokens")
     step0 = step0_compare(cfg, params, loader.batch(0))
     del params
     gc.collect()
     torch.cuda.empty_cache()
 
-    tcfg = TrainConfig(steps=TRAIN_STEPS, lr=1e-3, warmup=1,
+    tcfg = TrainConfig(steps=steps, lr=1e-3, warmup=1,
                        weight_decay=0.01, remat=True, log_every=1,
                        use_kernel=True, device="cuda", seed=0)
     t0 = time.time()
@@ -2857,13 +3097,18 @@ def phase_train(fwd, kernels):
     hist = trainer.fit(log=print)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = fwd.launches
-    per_step = 2 * cfg.n_layers          # forward + remat recompute
-    if launches != per_step * TRAIN_STEPS:
-        fail(f"flash launches {launches} != {per_step} x {TRAIN_STEPS} steps")
+    launches, window_launches = fwd.launches, fwd.window_launches
+    layers = [sp for st in cfg.stacks for sp in st.period * st.n_periods]
+    per_step = 2 * len(layers)           # forward + remat recompute
+    per_step_window = 2 * sum(sp.mixer == SWA for sp in layers)
+    if launches != per_step * steps:
+        fail(f"flash launches {launches} != {per_step} x {steps} steps")
+    if window_launches != per_step_window * steps:
+        fail(f"flash launches with a window {window_launches} != "
+             f"{per_step_window} x {steps} steps")
     losses = [m["loss"] for m in hist]
-    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
-        fail(f"training losses are not {TRAIN_STEPS} finite values: {losses}")
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        fail(f"training losses are not {steps} finite values: {losses}")
     if not losses[-1] < losses[0]:
         fail(f"the loss did not fall: {losses[0]} -> {losses[-1]}")
     ms = [a.elapsed_time(b) for a, b in rec[1:]]     # after the warmup step
@@ -2877,15 +3122,198 @@ def phase_train(fwd, kernels):
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "fit_wall_s": wall, "loss_first": losses[0], "loss_last": losses[-1],
     }
-    print(f"trained {TRAIN_STEPS} steps ({wall:.1f}s): loss {losses[0]:.4f} "
+    print(f"trained {steps} steps ({wall:.1f}s): loss {losses[0]:.4f} "
           f"-> {losses[-1]:.4f}; flash launches {launches} = {per_step} x "
-          f"{TRAIN_STEPS}")
-    print("training: " + ", ".join(f"{k}={v}" for k, v in timing.items()))
-    timing.update(profile_train_step(trainer, step_fn, loader))
+          f"{steps}, {window_launches} of them with a window")
+    print(f"training {arch}: " + ", ".join(f"{k}={v}"
+                                           for k, v in timing.items()))
+    timing.update(profile_train_step(trainer, step_fn, loader, steps))
     del trainer, hist
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, timing, step0
+    return {"all": launches, "window": window_launches}, timing, step0
+
+
+def phase_remat_policies(fwd, kernels):
+    """Phase 12b: qwen3-8b's training scenario (8 of 36 layers, B=2,
+    S=4096, adamw, flash on) for REMAT_STEPS steps under remat "full",
+    "dots_no_batch" and "dots" from the same params: step 0's loss and
+    grad norm under each equal "full"'s within ``STEP0_TOL``, flash
+    launches == 16 a step under each (the kernel runs again in every
+    recompute); ms per step, the step's peak memory and that of one more
+    forward and backward printed, not gated."""
+    from repro_torch.models.transformer import init_params, trainable
+    from repro_torch.optim.adamw import adamw, cosine_lr
+    from repro_torch.train.step import grads_of, loss_fn, make_train_step
+
+    cfg = train_config("qwen3-8b")
+    loader = train_loader(cfg)
+    rows = {}
+    for policy in ("full", "dots_no_batch", "dots"):
+        params = trainable(init_params(0, cfg, device="cuda"))
+        opt = adamw(cosine_lr(1e-3, 1, REMAT_STEPS), weight_decay=0.01)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, remat=True, remat_policy=policy,
+                               use_kernel=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        rec = []
+        for i in range(REMAT_STEPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            params, state, m = step(params, state, loader.batch(i))
+            b.record()
+            rec.append((a, b))
+            if i == 0:
+                first = {k: m[k].item() for k in ("loss", "grad_norm")}
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in rec[1:]]
+        rows[policy] = dict(first, step_ms=sum(ms) / len(ms),
+                            peak_mem_gb=torch.cuda.max_memory_allocated()
+                            / 1e9, launches=fwd.launches)
+        if fwd.launches != 2 * cfg.n_layers * REMAT_STEPS:
+            fail(f"remat {policy}: flash launches {fwd.launches} != "
+                 f"{2 * cfg.n_layers} x {REMAT_STEPS} steps")
+        # the step's peak falls in the optimizer's update; the policy
+        # moves the peak of the forward and backward, read apart here
+        # (params and adamw state still held, as in the step)
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = loss_fn(params, cfg, loader.batch(REMAT_STEPS),
+                          remat_policy=policy, use_kernel=True)
+        grads = grads_of(params, loss)
+        torch.cuda.synchronize()
+        rows[policy]["peak_fwd_bwd_gb"] = (torch.cuda.max_memory_allocated()
+                                           / 1e9)
+        del params, state, step, m, loss, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    full = rows["full"]
+    for policy, r in rows.items():
+        d = {k: abs(r[k] - full[k]) / abs(full[k])
+             for k in ("loss", "grad_norm")}
+        r["step0_vs_full"] = d
+        for k, v in d.items():
+            if not v <= STEP0_TOL[k]:
+                fail(f"remat {policy}: step 0 {k} differs from full's by "
+                     f"{v} relative (tol {STEP0_TOL[k]})")
+        print(f"remat {policy}: {r['step_ms']:.1f} ms a step, peak "
+              f"{r['peak_mem_gb']:.2f} GB ({r['peak_fwd_bwd_gb']:.2f} GB in "
+              f"the forward and backward), step 0 loss {r['loss']:.6f} grad "
+              f"norm {r['grad_norm']:.6f} (relative to full's: loss "
+              f"{d['loss']:.3e}, grad norm {d['grad_norm']:.3e}; tol "
+              f"{STEP0_TOL['loss']}); flash launches {r['launches']}")
+    return rows
+
+
+def scan_train_config(arch):
+    """Phase 12d's configs at full width: jamba-1.5-large's attention
+    layer and its first Mamba layer with a dense FFN (layers 0 and 2 of
+    its period; an MoE layer is 9.66 B parameters), and two rwkv6-7b
+    layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch == "rwkv6-7b":
+        return dataclasses.replace(cfg, n_layers=2)
+    return dataclasses.replace(cfg, n_layers=2,
+                               period=(cfg.period[0], cfg.period[2]))
+
+
+def loss_grads(cfg, params, batch, use_kernel):
+    """Loss, grad norm and gradients of the training path
+    (``train.step.loss_fn``: full remat, chunked cross entropy), as
+    ``make_train_step`` takes them."""
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.step import grads_of, loss_fn
+    loss, _ = loss_fn(params, cfg, batch, use_kernel=use_kernel)
+    grads = grads_of(params, loss)
+    return loss.item(), global_norm(grads).item(), grads
+
+
+def phase_scan_training(kernels, flash_fwd, mamba_fwd, rwkv_fwd):
+    """Phase 12d: the scan kernels have no backward.  One training step's
+    loss and gradients at full width (``scan_train_config``, B=2, S=512,
+    float32 activations: the bf16 weights upcast, exactly) with
+    ``use_kernel=True`` against the all-plain path: no scan kernel is
+    launched, flash runs in jamba's attention layer (forward and remat
+    recompute), and the two agree within 1e-4 relative (loss, grad norm,
+    the gradients' L2 difference; in bf16 the flash-vs-plain rounding
+    alone moves jamba's gradients by about 4e-2 on an H100; rwkv6-7b has
+    no attention, so its two paths run the same ops).  Then
+    ``ops.mamba_scan`` / ``ops.rwkv_scan`` on CUDA inputs that require
+    grad must raise, and launch under ``torch.no_grad()``."""
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models.config import ATTN
+    from repro_torch.models.transformer import init_params, trainable
+    from repro_torch.tree import leaves, unflatten
+    out = {}
+    for arch, scan in (("jamba-1.5-large-398b", mamba_fwd),
+                       ("rwkv6-7b", rwkv_fwd)):
+        cfg = scan_train_config(arch)
+        params = init_params(0, cfg, device="cuda")
+        params = trainable(unflatten(params, (t.float() for t in
+                                              leaves(params))))
+        n_params = sum(t.numel() for t in _leaves(params))
+        batch = SyntheticLM(SyntheticConfig(
+            vocab_size=cfg.vocab_size, seq_len=512, global_batch=2,
+            noise=0.05, seed=0), device="cuda").batch(0)
+        reset_counts(kernels)
+        run = loss_grads(cfg, params, batch, True)
+        torch.cuda.synchronize()
+        n_attn = sum(sp.mixer == ATTN for sp in cfg.period)
+        if scan.launches != 0 or flash_fwd.launches != 2 * n_attn:
+            fail(f"{arch} training step: {scan.launches} scan launches, "
+                 f"{flash_fwd.launches} flash launches (want 0 and "
+                 f"{2 * n_attn})")
+        ref = loss_grads(cfg, params, batch, False)
+        d = step0_diffs(run, ref)
+        for k, v in d.items():
+            if not v <= TOL["float32"]:
+                fail(f"{arch} training step {k}: use_kernel differs from "
+                     f"the plain path by {v} relative")
+        layers = ", ".join(f"{sp.mixer}+{sp.ffn}" for sp in cfg.period)
+        print(f"{arch} at full width ({layers} x "
+              f"{cfg.n_layers // len(cfg.period)}, {n_params / 1e9:.3f} B "
+              f"parameters), one training step in float32 activations, "
+              f"B=2 S=512: use_kernel vs "
+              f"plain loss {run[0]:.6f} vs {ref[0]:.6f}; relative "
+              + ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+              + f" (tol {TOL['float32']})"
+              + f"; scan launches 0, flash launches {2 * n_attn}")
+        out[arch] = d
+        del params, batch, run, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the guard: inputs that require grad under grad mode are refused
+    for name, case, args, fwd in (
+            ("mamba_scan", mamba_case(1, 8, 64, 16, seed=0,
+                                      dtype=torch.bfloat16), mamba_args,
+             mamba_fwd),
+            ("rwkv_scan", rwkv_case(1, 8, 2, 16, seed=0, dtype=torch.bfloat16,
+                                    w_dtype=torch.float32), rwkv_args,
+             rwkv_fwd)):
+        xs = args(case)
+        xs[0] = xs[0].clone().requires_grad_()
+        before = fwd.launches
+        try:
+            getattr(ops, name)(*xs)
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            fail(f"{name} on CUDA inputs that require grad did not raise")
+        with torch.no_grad():
+            getattr(ops, name)(*xs)
+        torch.cuda.synchronize()
+        if fwd.launches != before + 1:
+            fail(f"{name}: {fwd.launches - before} launches, want 1 (the "
+                 f"call under no_grad)")
+        print(f"{name} on CUDA inputs that require grad under grad mode: "
+              f"raised; under no_grad: launched")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3473,7 +3901,13 @@ def main() -> int:
     phase_flash_vs_plain(flash_attention_fwd, flash_attention_ref)
     gc.collect()
     torch.cuda.empty_cache()
+    # by device time before any serving phase, as 10c
+    fa_gemma = phase_flash_gemma_times(flash_attention_fwd,
+                                       flash_attention_ref)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_flash_backward()
+    phase_sampling_bits()
     pa_launches, _ = phase_serve(paged_attention_fwd, kernels)
     pa_times = phase_kernel_times(paged_attention_fwd, paged_attention_ref,
                                   QWEN3_HQ, "qwen3-8b")
@@ -3514,6 +3948,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fa_launches, _, _ = phase_train(flash_attention_fwd, kernels)
+    phase_remat_policies(flash_attention_fwd, kernels)
+    gt_launches, _, _ = phase_train(flash_attention_fwd, kernels,
+                                    "gemma3-12b", GEMMA_TRAIN_STEPS)
+    phase_scan_training(kernels, flash_attention_fwd, mamba_scan_fwd,
+                        rwkv_scan_fwd)
     fa_times = phase_flash_times(flash_attention_fwd, flash_attention_ref)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3562,11 +4001,23 @@ def main() -> int:
          "shapes": {"decode B=8 S=1 di=16384 ds=16": mb_times["decode"],
                     "prefill B=8 S=128 di=16384 ds=16, 1 live row":
                         mb_times["prefill"]}},
-        # the training shape: qwen3-8b, B=2, S=4096, bf16, causal
+        # the training shape: qwen3-8b, B=2, S=4096, bf16, causal; then
+        # gemma3-12b's two, with the launches of its own trained run
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:76",
-         "launches": fa_launches, **fa_times},
+         "launches": fa_launches["all"], **fa_times,
+         "shapes": {"qwen3-8b training B=2 Hq=32 Hkv=8 S=4096 D=128 causal":
+                        dict(fa_times, launches=fa_launches["all"]),
+                    "gemma3-12b training B=2 Hq=16 Hkv=8 S=4096 D=256 "
+                    "window 1024":
+                        dict(fa_gemma["window 1024"],
+                             launches=gt_launches["window"]),
+                    "gemma3-12b training B=2 Hq=16 Hkv=8 S=4096 D=256 "
+                    "causal":
+                        dict(fa_gemma["causal"],
+                             launches=gt_launches["all"]
+                             - gt_launches["window"])}},
         # the decentralized plane's whole gradient (2.788 B bf16 elements);
         # launches: every payload and the gradient of its hand-driven step
         {"name": "int8_quantize", "route": "cuda",

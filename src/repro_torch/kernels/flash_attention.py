@@ -7,7 +7,7 @@ For tensors on the CPU it runs the plain version
 kernel takes, allocates the outputs, and launches on PyTorch's current
 stream — or raises; nothing falls back.  ``flash_attention_fwd.launches``
 counts launches, so a run can show that its attention went through the
-kernel.
+kernel (``window_launches`` counts those with a sliding window apart).
 
 ``FlashAttention`` is the differentiable call: its forward is
 ``flash_attention_fwd``; its backward, ``flash_attention_bwd``, is plain
@@ -105,10 +105,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention_fwd: CUDA launch failed "
                            f"(cudaError_t {err})")
     flash_attention_fwd.launches += 1
+    if window > 0:
+        flash_attention_fwd.window_launches += 1
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.window_launches = 0     # the launches with a window
 
 
 def flash_attention_bwd(q, k, v, out, lse, d_out, *, causal: bool = True,

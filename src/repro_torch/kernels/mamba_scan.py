@@ -4,8 +4,9 @@
 For tensors on the CPU it runs the plain version (``ref.mamba_scan_ref``).
 For CUDA tensors it checks what the kernel takes, allocates the outputs,
 and launches on PyTorch's current stream — or raises; nothing falls
-back.  ``mamba_scan_fwd.launches`` counts launches, so a run can show
-that its Mamba mixers went through the kernel.
+back.  The kernel has no backward, so on CUDA it also raises when grad
+mode is on and an input requires grad.  ``mamba_scan_fwd.launches`` counts
+launches, so a run can show that its Mamba mixers went through the kernel.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.ref import mamba_scan_ref
 
 MAX_D_STATE = 16
@@ -94,6 +95,7 @@ def mamba_scan_fwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         return (y, h) if return_state else y
     if x.device.type != "cuda":
         raise ValueError(f"mamba_scan_fwd: unsupported device {x.device}")
+    refuse_autograd("mamba_scan", x, dt, b, c, a, h0)
     _check(x, dt, b, c, a, h0, rows, state_out, out_dtype)
     B, S, di = x.shape
     ds = b.shape[-1]

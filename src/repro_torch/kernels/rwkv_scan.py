@@ -4,8 +4,9 @@
 For tensors on the CPU it runs the plain version (``ref.rwkv_scan_ref``).
 For CUDA tensors it checks what the kernel takes, allocates the outputs,
 and launches on PyTorch's current stream — or raises; nothing falls
-back.  ``rwkv_scan_fwd.launches`` counts launches, so a run can show that
-its RWKV time-mixes went through the kernel.
+back.  The kernel has no backward, so on CUDA it also raises when grad
+mode is on and an input requires grad.  ``rwkv_scan_fwd.launches`` counts
+launches, so a run can show that its RWKV time-mixes went through the kernel.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.ref import rwkv_scan_ref
 
 MAX_HEAD_DIM = 128
@@ -96,6 +97,7 @@ def rwkv_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return (o, st) if return_state else o
     if r.device.type != "cuda":
         raise ValueError(f"rwkv_scan_fwd: unsupported device {r.device}")
+    refuse_autograd("rwkv_scan", r, k, v, w, u, s0)
     if w.dtype == torch.bfloat16:
         w = w.float()
     _check(r, k, v, w, u, s0, rows, state_out, out_dtype)

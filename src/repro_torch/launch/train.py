@@ -1,6 +1,7 @@
 """Training launcher of the port, on the GPU unless ``--device cpu`` is
 given.  The flags are those of ``repro.launch.train``, plus ``--device``
-and ``--kernel`` (attention through the Hopper flash-attention kernel):
+and ``--kernel`` (attention through the Hopper flash-attention kernel; the
+Mamba and RWKV scans stay plain, since their kernels have no backward):
 
     python -m repro_torch.launch.train --arch qwen3-8b --steps 100 --kernel
     python -m repro_torch.launch.train --device cpu --steps 3
@@ -35,7 +36,9 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; raises without a GPU)")
     ap.add_argument("--kernel", action="store_true",
-                    help="attention through the flash-attention kernel")
+                    help="attention through the flash-attention kernel "
+                         "(the Mamba and RWKV scans stay plain: their "
+                         "kernels have no backward)")
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)

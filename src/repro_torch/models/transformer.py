@@ -17,7 +17,8 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                      create_selective_checkpoint_contexts)
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.models import mla, ssm
@@ -104,7 +105,8 @@ def layer_apply(lp: dict, spec, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[dict], *,
                 decode: bool = False, kv_chunk: int = 1024,
                 masked_slots: bool = False, block_table=None,
-                use_kernel: bool = False):
+                use_kernel: bool = False,
+                scan_kernel: Optional[bool] = None):
     """Pre-norm residual block: x + mixer(norm1(x)), then + ffn(norm2(x)).
     Returns (x, cache, aux_loss); the cache is written in place.
     ``decode``: single-token cache paths (MLA's absorbed attention).
@@ -115,7 +117,8 @@ def layer_apply(lp: dict, spec, cfg: ModelConfig, x: torch.Tensor,
     ran the scan on padding).  ``use_kernel``: paged single-token decode
     attention runs the paged-decode kernel; the Mamba and RWKV
     recurrences run the ``mamba_scan`` / ``rwkv_scan`` kernels at every
-    S.  MoE FFNs return their load-balance loss as ``aux_loss``."""
+    S, unless ``scan_kernel`` (None: as ``use_kernel``) is False.  MoE
+    FFNs return their load-balance loss as ``aux_loss``."""
     _check_layer(spec)
     h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
     if spec.mixer in (MAMBA, RWKV):
@@ -123,7 +126,8 @@ def layer_apply(lp: dict, spec, cfg: ModelConfig, x: torch.Tensor,
                  if masked_slots and cache is not None else None)
         apply = ssm.mamba_apply if spec.mixer == MAMBA else ssm.rwkv_apply
         h, cache = apply(lp["mixer"], h, cfg, cache=cache, valid=valid,
-                         use_kernel=use_kernel)
+                         use_kernel=(use_kernel if scan_kernel is None
+                                     else scan_kernel))
     elif cfg.use_mla:
         h, cache = mla.mla_apply(lp["mixer"], h, cfg, positions=positions,
                                  cache=cache, decode=decode,
@@ -250,23 +254,48 @@ def _period(tree, i: int):
     return tuple(_period(v, i) for v in tree)
 
 
+# the matmuls whose outputs a selective remat policy keeps: "dots" every
+# one (JAX's ``checkpoint_dots``), "dots_no_batch" those without a batch
+# dimension (``dots_with_no_batch_dims_saveable``): the projections, which
+# ``x @ w`` lowers to ``mm`` / ``addmm``, and not the attention scores or
+# the MoE expert products, which ``einsum`` / batched ``matmul`` lower to
+# ``bmm`` / ``baddbmm``
+_aten = torch.ops.aten
+_SAVED_MATMULS = {
+    "dots": {_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+             _aten.baddbmm.default},
+    "dots_no_batch": {_aten.mm.default, _aten.addmm.default},
+}
+
+
+def _selective_context(remat_policy: str):
+    saved = _SAVED_MATMULS[remat_policy]
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return create_selective_checkpoint_contexts(policy)
+
+
 def _remat_wrap(body, remat: bool, remat_policy: str):
     """``remat_policy`` "full": recompute each period's activations in the
     backward pass (``jax.checkpoint`` with no policy in the JAX package);
-    "none" is another way of saying ``remat=False``: keep them.  That is
-    the meaning ``core/workload.py`` gives "none"; the JAX forward itself
-    falls through to a full checkpoint for it.  The parameter stays for
-    the JAX signatures of ``loss_fn`` / ``make_train_step``.  The JAX
-    package's "dots" / "dots_no_batch" save the matmul outputs; they are
-    not ported."""
-    if remat_policy in ("dots", "dots_no_batch"):
-        raise NotImplementedError(
-            f"repro_torch: remat_policy {remat_policy!r} is not ported yet")
-    if remat_policy not in ("full", "none"):
+    "dots" / "dots_no_batch": recompute them but keep the outputs of the
+    matmuls named in ``_SAVED_MATMULS`` (``torch.utils.checkpoint``'s
+    selective checkpointing; a kernel launched through ctypes inside the
+    period, as flash attention's, dispatches no matmul and is run again);
+    "none" is another way of saying ``remat=False``: keep them all.  That
+    is the meaning ``core/workload.py`` gives "none"; the JAX forward
+    itself falls through to a full checkpoint for it."""
+    if remat_policy not in ("full", "none", *_SAVED_MATMULS):
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
     if not remat or remat_policy == "none":
         return body
-    return lambda *args: checkpoint(body, *args, use_reentrant=False)
+    if remat_policy == "full":
+        return lambda *args: checkpoint(body, *args, use_reentrant=False)
+    return lambda *args: checkpoint(
+        body, *args, use_reentrant=False,
+        context_fn=lambda: _selective_context(remat_policy))
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
@@ -275,15 +304,19 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             remat: bool = False, kv_chunk: int = 1024,
             compute_logits: bool = True, masked_slots: bool = False,
             remat_policy: str = "full", block_table=None,
-            use_kernel: bool = False, decode: bool = False):
+            use_kernel: bool = False, decode: bool = False,
+            scan_kernel: Optional[bool] = None):
     """Run the decoder.  Returns (logits_or_hidden, aux_loss, caches);
     ``caches`` is updated in place and returned.  ``positions`` defaults
     to arange(S) per row.  ``decode=True`` selects the single-token cache
     paths (MLA's absorbed attention).  ``block_table`` marks ``caches`` as
     paged pools; ``use_kernel=True`` runs each mixer's Hopper kernel where the
     port has one (paged single-token decode attention, self-attention
-    with no cache, the Mamba and RWKV recurrences).  ``remat`` recomputes each
-    period's activations in the backward pass (see ``_remat_wrap``)."""
+    with no cache, the Mamba and RWKV recurrences).  ``scan_kernel``
+    (None: as ``use_kernel``) decides the recurrences apart: the scan
+    kernels have no backward and refuse inputs that require grad, so the
+    training path passes False and keeps them plain.  ``remat`` recomputes
+    each period's activations in the backward pass (see ``_remat_wrap``)."""
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     if positions is None:
@@ -295,7 +328,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             "which masks by index: leave positions at its default arange(S)")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kw = dict(decode=decode, kv_chunk=kv_chunk, masked_slots=masked_slots,
-              block_table=block_table, use_kernel=use_kernel)
+              block_table=block_table, use_kernel=use_kernel,
+              scan_kernel=scan_kernel)
     for i, spec in enumerate(cfg.prefix_layers):
         c = caches["prefix"][i] if caches is not None else None
         x, _, a = layer_apply(params["prefix"][i], spec, cfg, x, positions,
@@ -327,18 +361,19 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
 
 def mtp_hidden(params: dict, cfg: ModelConfig, h: torch.Tensor,
                next_tokens: torch.Tensor, positions: torch.Tensor, *,
-               use_kernel: bool = False):
+               use_kernel: bool = False, scan_kernel: Optional[bool] = None):
     """DeepSeek-style MTP module: predict token t+2 from hidden h_t fused
     with the embedding of token t+1.  h: (B,S,d) final hidden (pre-head);
     next_tokens: (B,S) = token t+1.  Returns (hidden for the shared head,
-    aux loss)."""
+    aux loss).  ``use_kernel`` / ``scan_kernel`` as in ``forward``."""
     mp = params["mtp"]
     e = params["embed"][next_tokens.long()]
     z = torch.cat([rmsnorm(h, mp["norm_h"], cfg.norm_eps),
                    rmsnorm(e, mp["norm_e"], cfg.norm_eps)], dim=-1)
     z = z @ mp["proj"].to(z.dtype)
     z, _, a = layer_apply(mp["layer"], cfg.period[-1], cfg, z, positions,
-                          None, use_kernel=use_kernel)
+                          None, use_kernel=use_kernel,
+                          scan_kernel=scan_kernel)
     return rmsnorm(z, params["final_norm"], cfg.norm_eps), a
 
 

@@ -16,9 +16,14 @@ work.  Nothing inside a step's forward pass waits for the device; a
 decode tick reads the next tokens of every slot in one device-to-host
 copy at its end, not one ``int()`` per slot.
 
-Sampling is Gumbel-argmax with a per-slot ``torch.Generator`` seeded
-from (seed + slot, step counter), like the JAX engine's counter keys; it
-does not reproduce JAX's threefry bits.
+Sampling draws JAX's threefry bits (``repro_torch.prng``) from the
+same per-slot counter keys (seed + slot, step counter) as the JAX engine,
+on the logits' device for every sampled slot at once, so sampled tokens
+are JAX's token for token.
+
+``make_prefill_step`` / ``make_decode_step`` are the counterparts of the
+JAX engine's prefill and single-token decode functions; ``generate``
+runs them.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import DeviceLike, device_of, resolve_device
+from repro_torch import DeviceLike, device_of, prng, resolve_device
 from repro_torch.models.config import ATTN, MAMBA, RWKV, SWA, ModelConfig
 from repro_torch.models.layers import NEG_INF, swa_ring_blocks
 from repro_torch.models.transformer import (check_ported, forward, init_cache,
@@ -41,17 +46,43 @@ from repro_torch.models.transformer import (check_ported, forward, init_cache,
 POOL_LEAVES = ("k", "v", "pos", "ckv", "krope")
 
 
-def topp_sample(uniform: torch.Tensor, logits: torch.Tensor,
+def make_prefill_step(cfg: ModelConfig, *, kv_chunk: int = 1024):
+    """(params, caches, batch, positions) -> (last-token logits (B,1,V),
+    caches).  batch carries (B, S_prompt) tokens (and / or stub
+    embeddings); the caches are written in place."""
+    def prefill_step(params, caches, batch, positions):
+        logits, _, caches = forward(params, cfg, batch, caches=caches,
+                                    positions=positions, kv_chunk=kv_chunk)
+        return logits[:, -1:, :], caches
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, *, kv_chunk: int = 1024):
+    """(params, caches, batch with (B,1) tokens | embeds, positions (B,1))
+    -> (logits (B,1,V), caches): one new token against the running cache.
+    (Continuous batching goes through ``make_engine_step``.)"""
+    def decode_step(params, caches, batch, positions):
+        logits, _, caches = forward(params, cfg, batch, caches=caches,
+                                    positions=positions, decode=True,
+                                    kv_chunk=kv_chunk)
+        return logits, caches
+    return decode_step
+
+
+def topp_sample(keys: torch.Tensor, logits: torch.Tensor,
                 temperature: torch.Tensor, top_p: torch.Tensor,
                 top_k: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per-row temperature + nucleus (+ optional top-k) sampling.
+    """Per-row temperature + nucleus (+ optional top-k) sampling, as
+    ``repro.serve.engine.topp_sample``.
 
-    uniform: (B, V) noise in [0, 1), one row per slot; logits: (B, V) f32;
-    temperature / top_p: (B,) f32; top_k: (B,) int, 0 = no cut.  Each
-    row samples (Gumbel-argmax) from the smallest prefix of its sorted
-    distribution whose mass reaches top_p, intersected with its top_k
-    highest logits; the top token always stays, so top_p -> 0 or
-    top_k == 1 is greedy.  Returns (B, 1) int32."""
+    keys: (B, 2) raw threefry keys (uint32 words in an integer tensor),
+    each row's draw JAX's ``vmap(categorical)``; or (B, V) float uniforms
+    in [0, 1) already drawn.  logits: (B, V) f32; temperature / top_p:
+    (B,) f32; top_k: (B,) int, 0 = no cut.  Each row samples
+    (Gumbel-argmax) from the smallest prefix of its sorted distribution
+    whose mass reaches top_p, intersected with its top_k highest logits;
+    the top token always stays, so top_p -> 0 or top_k == 1 is greedy.
+    Returns (B, 1) int32."""
     V = logits.shape[-1]
     lg = logits / temperature.clamp(min=1e-6)[:, None]
     order = torch.argsort(-lg, dim=-1, stable=True)
@@ -63,22 +94,11 @@ def topp_sample(uniform: torch.Tensor, logits: torch.Tensor,
         k_eff = torch.where(top_k > 0, top_k, V)
         keep &= torch.arange(V, device=logits.device)[None, :] < k_eff[:, None]
     slg = torch.where(keep, slg, NEG_INF)
-    u = uniform.clamp(min=torch.finfo(torch.float32).tiny)
-    idx = torch.argmax(slg - torch.log(-torch.log(u)), dim=-1, keepdim=True)
-    return torch.gather(order, -1, idx).to(torch.int32)
-
-
-def slot_uniforms(rng_keys: np.ndarray, rows, vocab: int,
-                  device: torch.device) -> torch.Tensor:
-    """(B, V) uniform noise; row b (for b in ``rows``) drawn from a
-    generator seeded by its counter key (slot seed, step), so a sampled
-    slot's stream depends only on (seed, slot, step)."""
-    u = torch.full((rng_keys.shape[0], vocab), 0.5, device=device)
-    for b in rows:
-        gen = torch.Generator(device=device)
-        gen.manual_seed((int(rng_keys[b, 0]) << 32) | int(rng_keys[b, 1]))
-        u[b] = torch.rand(vocab, generator=gen, device=device)
-    return u
+    if keys.is_floating_point():
+        idx = torch.argmax(prng.gumbel_from_uniform(keys) + slg, dim=-1)
+    else:
+        idx = prng.categorical(keys, slg)
+    return torch.gather(order, -1, idx[:, None]).to(torch.int32)
 
 
 def apply_repetition_penalty(logits: torch.Tensor, seen: torch.Tensor,
@@ -110,6 +130,13 @@ def make_engine_step(cfg: ModelConfig, *, kv_chunk: int = 1024,
         B = tokens.shape[0]
         dev = tokens.device
         penalize = bool(np.any(rep_penalty != 1.0))
+        hot = np.nonzero(temperature > 0.0)[0]
+        # the sampled rows' keys and settings go to the device before the
+        # forward is queued, so the copies wait on no device work
+        sampled = None if not len(hot) else [
+            torch.from_numpy(a).to(dev) for a in (
+                hot, rng_keys[hot].astype(np.int64), temperature[hot],
+                top_p[hot], top_k[hot])]
         if penalize:
             ok = positions >= 0
             rows = torch.arange(B, device=dev)[:, None].expand_as(tokens)
@@ -126,41 +153,49 @@ def make_engine_step(cfg: ModelConfig, *, kv_chunk: int = 1024,
             lg = apply_repetition_penalty(
                 lg, seen, torch.from_numpy(rep_penalty).to(dev))
         tok = torch.argmax(lg, dim=-1, keepdim=True).to(torch.int32)
-        sampled_rows = np.nonzero(temperature > 0.0)[0]
-        if len(sampled_rows):
-            temp = torch.from_numpy(temperature).to(dev)
-            u = slot_uniforms(rng_keys, sampled_rows, lg.shape[-1], dev)
-            sampled = topp_sample(u, lg, temp,
-                                  torch.from_numpy(top_p).to(dev),
-                                  torch.from_numpy(top_k).to(dev))
-            tok = torch.where(temp[:, None] > 0.0, sampled, tok)
+        if sampled is not None:
+            idx, keys, temp, p, k = sampled
+            tok[idx] = topp_sample(keys, lg[idx], temp, p, k)
         return tok, caches, seen
     return engine_step
 
 
+def sample(logits: torch.Tensor, key: torch.Tensor,
+           temperature: float = 0.0) -> torch.Tensor:
+    """logits (B,1,V) f32 -> tokens (B,1) int32: greedy at temperature
+    0, else ``jax.random.categorical(key, logits / temperature)``'s draw
+    (``key``: one raw (2,) key)."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return prng.categorical(key, logits / temperature).to(torch.int32)
+
+
 def generate(params: dict, cfg: ModelConfig, prompts, *, max_new: int,
-             cache_len: Optional[int] = None) -> torch.Tensor:
-    """Greedy batched generation on the parameters' device (the reference
-    the engine tests compare against).  prompts: (B, S) int.  Returns
-    (B, S + max_new) int32."""
+             cache_len: Optional[int] = None, temperature: float = 0.0,
+             seed: int = 0) -> torch.Tensor:
+    """Batched generation on the parameters' device (the reference the
+    engine tests compare against): greedy at temperature 0, else sampled
+    with JAX's key sequence (``PRNGKey(seed)`` for the first token, then
+    ``key, sub = split(key)`` before each decode step, the key chain kept
+    on the host).  prompts: (B, S) int.  Returns (B, S + max_new) int32."""
     dev = device_of(params)
     prompts = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
     B, S0 = prompts.shape
     caches = init_cache(cfg, B, cache_len or (S0 + max_new), device=dev)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
     pos = torch.arange(S0, dtype=torch.int32, device=dev)[None].expand(B, S0)
-    logits, _, caches = forward(params, cfg, {"tokens": prompts},
-                                caches=caches, positions=pos)
-    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    logits, caches = prefill(params, caches, {"tokens": prompts}, pos)
+    key = prng.PRNGKey(seed)
     out = [prompts]
+    tok = sample(logits, key, temperature)
     for t in range(max_new):
         out.append(tok)
         if t == max_new - 1:
             break
+        key, sub = prng.split(key)
         posd = torch.full((B, 1), S0 + t, dtype=torch.int32, device=dev)
-        logits, _, caches = forward(params, cfg, {"tokens": tok},
-                                    caches=caches, positions=posd,
-                                    decode=True)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        logits, caches = decode(params, caches, {"tokens": tok}, posd)
+        tok = sample(logits, sub, temperature)
     return torch.cat(out, dim=1)
 
 

@@ -30,9 +30,11 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     (``cfg.mtp_depth`` and ``params["mtp"]``) and tokens in the batch, the
     depth-1 MTP loss — token t+2 from h_t and token t+1 (== labels_t) —
     adds ``mtp_coef`` x its cross entropy and its aux loss.
-    ``use_kernel`` runs the attention through the flash kernel."""
+    ``use_kernel`` runs the attention through the flash kernel; the Mamba
+    and RWKV scans stay plain (their kernels have no backward)."""
     h, aux, _ = forward(params, cfg, batch, remat=remat, compute_logits=False,
-                        remat_policy=remat_policy, use_kernel=use_kernel)
+                        remat_policy=remat_policy, use_kernel=use_kernel,
+                        scan_kernel=False)
     head = _head_matrix(params, cfg)
     ce, acc = cross_entropy_chunked(h, head, batch["labels"], chunk=ce_chunk)
     loss = ce + aux
@@ -42,7 +44,7 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
         positions = torch.arange(S, dtype=torch.int32,
                                  device=h.device)[None].expand(B, S)
         h_mtp, aux_m = mtp_hidden(params, cfg, h, batch["labels"], positions,
-                                  use_kernel=use_kernel)
+                                  use_kernel=use_kernel, scan_kernel=False)
         lbl_mtp = torch.cat([batch["labels"][:, 1:],
                              torch.full_like(batch["labels"][:, :1], -1)],
                             dim=1)
@@ -70,7 +72,8 @@ def make_train_step(cfg: ModelConfig, optimizer, *, microbatches: int = 1,
     opt_state, metrics)``; the optimizer updates params and state in
     place.  ``microbatches > 1`` accumulates the gradients of equal batch
     slices in float32, averaged, as the JAX version's scan does;
-    ``remat_policy``: full | none (dots / dots_no_batch are not ported).
+    ``remat_policy``: full | dots | dots_no_batch | none (see
+    ``transformer._remat_wrap``).
     The params must require gradients (``transformer.trainable``)."""
     def grad_fn(params, batch):
         loss, metrics = loss_fn(params, cfg, batch, remat=remat,

@@ -32,7 +32,9 @@ class TrainConfig:
     ckpt_dir: str = field(default_factory=lambda: os.path.join(
         tempfile.gettempdir(), "repro_torch_ckpt"))
     seed: int = 0
-    use_kernel: bool = False            # attention through the flash kernel
+    # attention through the flash kernel; the Mamba and RWKV scans stay
+    # plain (their kernels have no backward)
+    use_kernel: bool = False
     device: Optional[str] = None        # None = cuda
 
 

@@ -285,7 +285,7 @@ def test_attn_apply_paged_matches_jax_with_qk_norm_and_bias(S):
     close(tnew["v"], jnew["v"], "bfloat16")
 
 
-def test_attn_apply_sliding_window_not_ported():
+def test_attn_apply_sliding_window_no_cache_matches_jax():
     """Sliding-window attention is ported now (``test_torch_swa.py`` holds
     its cache paths): the no-cache windowed branch matches JAX's, the
     flash path (its plain version on the CPU) and the scan path alike."""

@@ -329,8 +329,8 @@ def test_microbatches_and_remat_give_the_same_gradients(variant):
 def test_unported_options_raise():
     _, tcfg, jp, _, tbatch = _step_case("qwen3-8b", B=2, S=8)
     tp = trainable(params_from_jax(_np(jp), device="cpu"))
-    with pytest.raises(NotImplementedError, match="dots"):
-        TS.loss_fn(tp, tcfg, tbatch, remat_policy="dots")
+    with pytest.raises(ValueError, match="unknown remat_policy"):
+        TS.loss_fn(tp, tcfg, tbatch, remat_policy="dots_all")
     with pytest.raises(ValueError, match="multiple of microbatches"):
         TS.make_train_step(tcfg, TO.sgd(1e-3), microbatches=3)(
             tp, TO.sgd(1e-3).init(tp), tbatch)

@@ -205,10 +205,26 @@ failure:
    Bus bytes per link and each compnode's FP / BP ms beside the paper's
    Eq. 1 estimate for an h100 ``CompNode``.
 
+16. the dry-run plane: 16a runs ``python -m repro_torch.launch.dryrun
+   --kernel --device cuda`` for the pairs whose trace needs the card's
+   torch build (``DRYRUN_PAIRS``: the decode programs that reach the
+   three custom ops, on the fake 256-rank (16 x 16) mesh) and for
+   qwen3-8b decode_32k on the 2 x 16 x 16 mesh, each in a process of its
+   own, all at once (the CPU program of every pair is traced by
+   ``tests/test_torch_dryrun.py``): every record "ok", one line each with
+   its bottleneck, per-chip GB and each roofline term's ms.
+   16b dry-runs qwen3-8b's engine step (8 slots, cache_len 1024, page
+   16, the kernels' custom ops) on a 1 x 1 mesh and holds it to the
+   real step on the card: the bytes of params and caches, the FLOPs by
+   ``FlopCounterMode``'s formulas and the 36 paged-decode launches a
+   tick must be equal; the predicted peak and the roofline's ms are
+   printed beside ``max_memory_allocated`` and the tick's time on CUDA
+   events and by device time.
+
 The phases run in the order 1-2c, 10c, 5, 11, 13b (the kernel checks
 and the times a profiler takes before serving), 2d, 3-4, 6-7, 8-10b, 9b,
-9c-9e, 12-12d, 13, 14 (the sweep), 15, 14 (the large run and times);
-each model is freed before the next is drawn.  The total time
+9c-9e, 12-12d, 13, 14 (the sweep), 15, 14 (the large run and times),
+16; each model is freed before the next is drawn.  The total time
 is printed before the result lines.
 
 Output: human-readable lines, then one JSON line ``{"kernels": [...]}``,
@@ -3809,6 +3825,174 @@ def phase_plane(kernels, flash_fwd):
     return launches, r
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the dry-run plane (fake 256-rank mesh) and its prediction of
+# the real engine step
+# ---------------------------------------------------------------------------
+
+# the pairs whose trace needs the card's torch build: decode programs with
+# the kernels' custom ops on fake cuda tensors (the CPU program of every
+# pair is traced by tests/test_torch_dryrun.py); between them they reach
+# all three custom ops.  DRYRUN_MULTI_POD runs on the 2x16x16 mesh.
+DRYRUN_PAIRS = [("rwkv6-7b", "long_500k"),
+                ("jamba-1.5-large-398b", "decode_32k")]
+DRYRUN_MULTI_POD = ("qwen3-8b", "decode_32k")
+DRYRUN_WORKERS = 6                 # of the machine's 8 cores
+DRYRUN_TIMEOUT = 400               # seconds per pair
+
+
+def phase_dryrun(pairs=None):
+    """16a: ``python -m repro_torch.launch.dryrun`` per pair, each in a
+    process of its own (the fake process group is global state), on the
+    fake 256-rank mesh with the card's own program (device cuda; decode
+    shapes run the paged engine step with the kernels' custom ops).
+    Every record must be "ok"."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    import os
+    pairs = list(pairs or DRYRUN_PAIRS)
+    jobs = [(a, s, False) for a, s in pairs] + [(*DRYRUN_MULTI_POD, True)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as out:
+        def run(job):
+            arch, shape, multi = job
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--kernel",
+                   "--device", "cuda", "--out", out] + (
+                       ["--multi-pod"] if multi else [])
+            r = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                               timeout=DRYRUN_TIMEOUT, cwd=str(ROOT))
+            mesh = "pod2x16x16" if multi else "pod16x16"
+            path = Path(out) / f"{arch}_{shape}_{mesh}.json"
+            if r.returncode != 0 or not path.exists():
+                fail(f"dry-run {arch} {shape} {mesh}: exit {r.returncode}: "
+                     f"{r.stderr[-2000:]}")
+            return json.loads(path.read_text())
+        workers = min(DRYRUN_WORKERS, len(jobs))
+        with ThreadPoolExecutor(workers) as pool:
+            recs = list(pool.map(run, jobs))
+    wall = time.time() - t0
+    for rec in recs:
+        if rec["status"] != "ok":
+            fail(f"dry-run {rec['arch']} {rec['shape']} {rec['mesh']}: "
+                 f"{rec.get('error')} at {rec.get('where')}")
+        ro = rec["roofline"]
+        print(f"dry-run {rec['arch']} x {rec['shape']} x {rec['mesh']} "
+              f"({rec['chips']} ranks, kernel {rec['kernel']}): "
+              f"bottleneck {ro['bottleneck']}; per chip "
+              f"{rec['per_chip_arg_bytes'] / 1e9:.3f} GB of arguments, "
+              f"peak {ro['per_chip_peak_mem'] / 1e9:.3f} GB; compute "
+              f"{ro['compute_s'] * 1e3:.3f} ms, memory "
+              f"{ro['memory_s'] * 1e3:.3f} ms, collective "
+              f"{ro['collective_s'] * 1e3:.3f} ms; trace "
+              f"{rec['compile_s']:.1f} s")
+    print(f"dry-run: {len(recs)} records ok in {wall:.1f}s of wall time "
+          f"({workers} processes)")
+    return recs
+
+
+def dryrun_state(cfg, B, cache_len, page):
+    """A decode tick's real operands for ``make_engine_step`` on the card:
+    every slot live at position 100 over its own 64 table columns."""
+    from repro_torch.models.transformer import init_cache
+    n_cols = cache_len // page
+    caches = init_cache(cfg, B, cache_len, paged=True, page_size=page,
+                        device="cuda")
+    table = torch.arange(B * n_cols, dtype=torch.int32,
+                         device="cuda").reshape(B, n_cols)
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1), dtype=torch.int32,
+                           device="cuda")
+    positions = torch.full((B, 1), 100, dtype=torch.int32, device="cuda")
+    seen = torch.zeros((B, cfg.vocab_size), dtype=torch.bool, device="cuda")
+    return caches, seen, tokens, positions, table
+
+
+def phase_dryrun_vs_real(paged_fwd, card: str):
+    """16b: the dry-run of qwen3-8b's engine step (8 slots, cache_len 1024,
+    page 16, the kernels' custom ops) on a 1x1 mesh against the real step
+    on the card: argument bytes of params + caches, FLOPs by
+    ``FlopCounterMode``'s formulas and custom-op launches a tick must be
+    equal; the predicted peak and the roofline's ms are printed beside
+    ``max_memory_allocated`` and a tick's time on CUDA events and by
+    device time (``device_ms``; "not measured" where the profiler's
+    records of ten ticks do not come to ten times one tick's)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun, mesh as mesh_mod
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import make_engine_step
+    B, T, page = 8, 1024, 16
+    shape = InputShape("qwen3-8b_engine_8x1024", T, B, "decode")
+    cfg = get_config("qwen3-8b")
+    mesh = mesh_mod.make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    try:
+        rec = dryrun.run_one("qwen3-8b", shape, mesh=mesh, mesh_name="1x1",
+                             page_size=page, use_kernel=True, verbose=False)
+    finally:
+        mesh_mod.teardown()
+    if rec["status"] != "ok":
+        fail(f"dry-run of the engine step: {rec.get('error')} at "
+             f"{rec.get('where')}")
+    pred_bytes = {g: rec["per_chip_arg_bytes_by_group"][g]
+                  for g in ("params", "caches")}
+    pred_flops = rec["cost_flops_per_device"]
+    pred_launches = rec["custom_op_calls"].get("paged_attention", 0)
+
+    params = init_params(0, cfg, device="cuda")
+    caches, seen, tokens, positions, table = dryrun_state(cfg, B, T, page)
+    real_bytes = {"params": sum(t.numel() * t.element_size()
+                                for t in _leaves(params)),
+                  "caches": sum(t.numel() * t.element_size()
+                                for t in _leaves(caches))}
+    fn = make_engine_step(cfg, paged=True, use_kernel=True)
+    host = (np.zeros((B, 2), np.uint32), np.zeros(B, np.float32),
+            np.ones(B, np.float32), np.zeros(B, np.int32),
+            np.ones(B, np.float32))
+    run = lambda: fn(params, caches, seen, tokens, positions, table, *host)
+    with torch.no_grad():
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = paged_fwd.launches
+        with FlopCounterMode(display=False) as fc:
+            run()
+        torch.cuda.synchronize()
+        launches = paged_fwd.launches - before
+        peak = torch.cuda.max_memory_allocated()
+        tick_ms = event_ms(lambda i: run(), 10)
+        # reported, not gated: a profile whose records do not add up is
+        # no measurement
+        try:
+            dev_ms = f"{device_ms(lambda i: run(), 10):.3f} ms"
+        except RuntimeError:
+            dev_ms = "not measured"
+    real_flops = fc.get_total_flops()
+    if pred_bytes != real_bytes:
+        fail(f"predicted argument bytes {pred_bytes} != the real {real_bytes}")
+    if pred_flops != real_flops:
+        fail(f"predicted FLOPs {pred_flops} != the real step's {real_flops}")
+    if not pred_launches == launches == cfg.n_layers:
+        fail(f"custom-op launches a tick: predicted {pred_launches}, real "
+             f"{launches}, want {cfg.n_layers}")
+    ro = rec["roofline"]
+    roof_ms = max(ro["compute_s"], ro["memory_s"], ro["collective_s"]) * 1e3
+    print(f"dry-run vs the real qwen3-8b engine step (B {B}, cache_len {T}, "
+          f"page {page}, kernels) on {card}: params + caches "
+          f"{sum(real_bytes.values()) / 1e9:.4f} GB, equal; FLOPs "
+          f"{real_flops:.6e}, equal; paged-decode launches {launches} a "
+          f"tick, equal; predicted peak {ro['per_chip_peak_mem'] / 1e9:.3f} "
+          f"GB vs max_memory_allocated {peak / 1e9:.3f} GB; roofline "
+          f"{roof_ms:.3f} ms ({ro['bottleneck']}) vs {tick_ms:.3f} ms a "
+          f"tick on CUDA events, device time {dev_ms}; trace "
+          f"{rec['compile_s']:.1f} s")
+    del params, caches
+    return {"pred_peak_gb": ro["per_chip_peak_mem"] / 1e9,
+            "peak_gb": peak / 1e9, "roofline_ms": roof_ms,
+            "tick_event_ms": tick_ms, "tick_device": dev_ms}
+
+
 def print_build_report(build, libs) -> None:
     """Registers, static shared memory and spills of every kernel instance
     (ptxas), the dynamic shared memory of the redesigned kernels' blocks,
@@ -3960,6 +4144,10 @@ def main() -> int:
     plane_launches, plane = phase_plane(kernels, flash_attention_fwd)
     q_times, dq_times = phase_int8_times(int8_quantize_fwd,
                                          int8_dequantize_fwd, plane["n_grad"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_dryrun()
+    phase_dryrun_vs_real(paged_attention_fwd, card)
 
     result = [
         # qwen3-8b's decode shape leads; jamba's (G = 8) follows with the

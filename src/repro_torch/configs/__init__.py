@@ -10,12 +10,14 @@ attention-free ``rwkv6-7b``, the Mamba + attention + MoE hybrid
 
 Each ``<arch>.py`` module exports ``CONFIG`` (the exact spec, source
 cited) and ``SMOKE`` (a reduced same-family variant runnable on the CPU).
-Every arch of the JAX package is ported.
+Every arch of the JAX package is ported.  ``INPUT_SHAPES`` and
+``baseline_pairs`` are the dry-run's matrix (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
 import importlib
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Dict, Tuple
 
 from repro_torch.models.config import ModelConfig
 
@@ -36,6 +38,30 @@ _ARCH_MODULES = {
 
 ALL_ARCHS: Tuple[str, ...] = tuple(_ARCH_MODULES)
 
+# the ten assigned architectures of ``repro.configs`` in its order (the
+# dry-run's baseline matrix); the paper's own bert-large and gpt3-24l
+# are not among them
+ASSIGNED_ARCHS: Tuple[str, ...] = (
+    "jamba-1.5-large-398b", "gemma3-12b", "qwen1.5-32b",
+    "llava-next-mistral-7b", "musicgen-medium", "qwen3-moe-235b-a22b",
+    "rwkv6-7b", "qwen3-8b", "llama3-405b", "deepseek-v3-671b")
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
 
 def _module(name: str):
     if name not in _ARCH_MODULES:
@@ -49,3 +75,24 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).SMOKE
+
+
+def shape_applicable(cfg: ModelConfig, shape: InputShape) -> Tuple[bool, str]:
+    """Whether (arch, shape) is part of the baseline matrix.
+    long_500k needs a sub-quadratic decode path (SSM / hybrid / SWA) —
+    pure full-attention archs are skipped per the assignment carve-out."""
+    if shape.name == "long_500k" and not cfg.supports_long_decode:
+        return False, "pure full-attention arch: no sub-quadratic long-context path"
+    return True, ""
+
+
+def baseline_pairs():
+    """All (arch, shape) pairs in the baseline matrix, plus skip notes."""
+    pairs, skips = [], []
+    for arch in ASSIGNED_ARCHS:
+        cfg = get_config(arch)
+        for shape in INPUT_SHAPES.values():
+            ok, why = shape_applicable(cfg, shape)
+            (pairs if ok else skips).append((arch, shape.name) if ok
+                                            else (arch, shape.name, why))
+    return pairs, skips

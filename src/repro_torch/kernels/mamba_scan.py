@@ -7,6 +7,10 @@ and launches on PyTorch's current stream — or raises; nothing falls
 back.  The kernel has no backward, so on CUDA it also raises when grad
 mode is on and an input requires grad.  ``mamba_scan_fwd.launches`` counts
 launches, so a run can show that its Mamba mixers went through the kernel.
+The launch is the custom op ``repro_torch::mamba_scan`` (CUDA only), with
+a fake implementation and a FLOP formula, so a dry-run traces it on fake
+tensors without launching or counting anything; on a mesh the model
+calls it on each rank's shard (``models.hints.LAYOUTS``).
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.ref import mamba_scan_ref
@@ -96,13 +101,32 @@ def mamba_scan_fwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"mamba_scan_fwd: unsupported device {x.device}")
     refuse_autograd("mamba_scan", x, dt, b, c, a, h0)
+    B, S, di = x.shape
+    ds = b.shape[-1]
+    if want_state and state_out is None:
+        state_out = x.new_empty((B, di, ds), dtype=torch.float32)
+    y = torch.ops.repro_torch.mamba_scan(x, dt, b, c, a, h0, rows, state_out,
+                                         out_dtype)
+    return (y, state_out) if return_state else y
+
+
+mamba_scan_fwd.launches = 0
+
+
+@torch.library.custom_op("repro_torch::mamba_scan",
+                         mutates_args=("state_out",), device_types="cuda")
+def _mamba_scan_cuda(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                     c: torch.Tensor, a: torch.Tensor,
+                     h0: Optional[torch.Tensor], rows: Optional[torch.Tensor],
+                     state_out: Optional[torch.Tensor],
+                     out_dtype: torch.dtype) -> torch.Tensor:
+    """The launch: checks what the kernel takes, allocates the output,
+    launches (the final state into ``state_out``, which may be ``h0``),
+    and counts the launch."""
     _check(x, dt, b, c, a, h0, rows, state_out, out_dtype)
     B, S, di = x.shape
     ds = b.shape[-1]
     y = torch.empty((B, S, di), dtype=out_dtype, device=x.device)
-    if want_state and state_out is None:
-        state_out = torch.empty((B, di, ds), dtype=torch.float32,
-                                device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().mamba_scan_fwd(
@@ -116,7 +140,21 @@ def mamba_scan_fwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(f"mamba_scan_fwd: CUDA launch failed "
                            f"(cudaError_t {err})")
     mamba_scan_fwd.launches += 1
-    return (y, state_out) if return_state else y
+    return y
 
 
-mamba_scan_fwd.launches = 0
+@_mamba_scan_cuda.register_fake
+def _(x, dt, b, c, a, h0, rows, state_out, out_dtype):
+    return x.new_empty(x.shape, dtype=out_dtype)
+
+
+def mamba_scan_flops(B: int, S: int, di: int, ds: int) -> int:
+    """The matmul FLOPs ``FlopCounterMode`` counts for the plain version:
+    the (di, ds) x (ds,) output contraction per (step, slot)."""
+    return 2 * B * S * di * ds
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba_scan)
+def _(x_shape, dt_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    B, S, di = x_shape
+    return mamba_scan_flops(B, S, di, b_shape[-1])

@@ -11,7 +11,10 @@ the same launch; a head-tiled instance launches its split kernel and the
 merge kernel), so a run can show that its decode ticks went through it;
 ``paged_attention_fwd.window_launches`` counts those of them with a
 window, so a run can tell a model's sliding-window layers from its
-global ones.
+global ones.  The launch is the custom op ``repro_torch::paged_attention``
+(CUDA only), with a fake implementation and a FLOP formula, so a dry-run
+traces it on fake tensors without launching or counting anything; on a
+mesh the model calls it on each rank's shard (``models.hints.LAYOUTS``).
 
 Query groups of up to ``MAX_GROUP`` heads with head dims up to
 ``MAX_HEAD_DIM`` run the split kernel; larger ones (MLA's absorbed decode:
@@ -32,6 +35,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import PAGES_PER_SPLIT, paged_attention_ref
@@ -167,7 +171,8 @@ def paged_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     int32; table (B,n_cols) int32; q_pos (B,1) int32; optional q_extra
     (B,1,Hq,De) / k_extra (N,page,Hkv,De).  Returns (B,1,Hq,Dv) in
     q.dtype.  See ``ref.paged_attention_ref`` for the semantics;
-    ``instance`` says which instance of the kernel runs."""
+    ``instance`` says which instance of the kernel runs.  On CUDA tensors
+    (fake ones too) this is the custom op ``repro_torch::paged_attention``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -176,6 +181,25 @@ def paged_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    q_extra=q_extra, k_extra=k_extra)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_fwd: unsupported device {q.device}")
+    return torch.ops.repro_torch.paged_attention(
+        q, k, v, pos, table, q_pos, q_extra, k_extra, float(scale),
+        int(window), float(softcap))
+
+
+paged_attention_fwd.launches = 0
+paged_attention_fwd.window_launches = 0
+
+
+@torch.library.custom_op("repro_torch::paged_attention", mutates_args=(),
+                         device_types="cuda")
+def _paged_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          pos: torch.Tensor, table: torch.Tensor,
+                          q_pos: torch.Tensor,
+                          q_extra: Optional[torch.Tensor],
+                          k_extra: Optional[torch.Tensor], scale: float,
+                          window: int, softcap: float) -> torch.Tensor:
+    """The launch: checks what the kernel takes, allocates the output and
+    the split partials, launches, and counts the launch."""
     _check(q, k, v, pos, table, q_pos, q_extra, k_extra)
     B, _, Hq, D = q.shape
     N, page, Hkv, Dv = v.shape
@@ -233,5 +257,23 @@ def paged_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-paged_attention_fwd.launches = 0
-paged_attention_fwd.window_launches = 0
+@_paged_attention_cuda.register_fake
+def _(q, k, v, pos, table, q_pos, q_extra, k_extra, scale, window, softcap):
+    B, _, Hq, _ = q.shape
+    return q.new_empty((B, 1, Hq, v.shape[-1]))
+
+
+def paged_attention_flops(B: int, Hq: int, n_cols: int, page: int, D: int,
+                          Dv: int, De: int = 0) -> int:
+    """The matmul FLOPs ``FlopCounterMode`` counts for the plain version:
+    per table column, the scores (D, plus De for the second contraction)
+    and the value product, over every column the table has."""
+    return 2 * B * Hq * n_cols * page * (D + De + Dv)
+
+
+@register_flop_formula(torch.ops.repro_torch.paged_attention)
+def _(q_shape, k_shape, v_shape, pos_shape, table_shape, q_pos_shape,
+      q_extra_shape, k_extra_shape, *args, out_shape=None, **kwargs) -> int:
+    De = 0 if q_extra_shape is None else q_extra_shape[-1]
+    return paged_attention_flops(q_shape[0], q_shape[2], table_shape[1],
+                                 k_shape[1], q_shape[3], v_shape[3], De)

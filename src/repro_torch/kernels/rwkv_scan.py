@@ -7,6 +7,10 @@ and launches on PyTorch's current stream — or raises; nothing falls
 back.  The kernel has no backward, so on CUDA it also raises when grad
 mode is on and an input requires grad.  ``rwkv_scan_fwd.launches`` counts
 launches, so a run can show that its RWKV time-mixes went through the kernel.
+The launch is the custom op ``repro_torch::rwkv_scan`` (CUDA only), with a
+fake implementation and a FLOP formula, so a dry-run traces it on fake
+tensors without launching or counting anything; on a mesh the model
+calls it on each rank's shard (``models.hints.LAYOUTS``).
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.ref import rwkv_scan_ref
@@ -100,12 +105,30 @@ def rwkv_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     refuse_autograd("rwkv_scan", r, k, v, w, u, s0)
     if w.dtype == torch.bfloat16:
         w = w.float()
+    B, S, H, hd = r.shape
+    if want_state and state_out is None:
+        state_out = r.new_empty((B, H, hd, hd), dtype=torch.float32)
+    o = torch.ops.repro_torch.rwkv_scan(r, k, v, w, u, s0, rows, state_out,
+                                        out_dtype)
+    return (o, state_out) if return_state else o
+
+
+rwkv_scan_fwd.launches = 0
+
+
+@torch.library.custom_op("repro_torch::rwkv_scan", mutates_args=("state_out",),
+                         device_types="cuda")
+def _rwkv_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    w: torch.Tensor, u: torch.Tensor, s0: Optional[torch.Tensor],
+                    rows: Optional[torch.Tensor],
+                    state_out: Optional[torch.Tensor],
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    """The launch: checks what the kernel takes, allocates the output,
+    launches (the final state into ``state_out``, which may be ``s0``),
+    and counts the launch."""
     _check(r, k, v, w, u, s0, rows, state_out, out_dtype)
     B, S, H, hd = r.shape
     o = torch.empty((B, S, H, hd), dtype=out_dtype, device=r.device)
-    if want_state and state_out is None:
-        state_out = torch.empty((B, H, hd, hd), dtype=torch.float32,
-                                device=r.device)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = _lib().rwkv_scan_fwd(
@@ -119,7 +142,20 @@ def rwkv_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"rwkv_scan_fwd: CUDA launch failed "
                            f"(cudaError_t {err})")
     rwkv_scan_fwd.launches += 1
-    return (o, state_out) if return_state else o
+    return o
 
 
-rwkv_scan_fwd.launches = 0
+@_rwkv_scan_cuda.register_fake
+def _(r, k, v, w, u, s0, rows, state_out, out_dtype):
+    return r.new_empty(r.shape, dtype=out_dtype)
+
+
+def rwkv_scan_flops(B: int, S: int, H: int, hd: int) -> int:
+    """The matmul FLOPs ``FlopCounterMode`` counts for the plain version:
+    one (1, hd) x (hd, hd) product per (step, slot, head)."""
+    return 2 * B * S * H * hd * hd
+
+
+@register_flop_formula(torch.ops.repro_torch.rwkv_scan)
+def _(r_shape, *args, out_shape=None, **kwargs) -> int:
+    return rwkv_scan_flops(*r_shape)

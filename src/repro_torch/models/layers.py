@@ -20,8 +20,12 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ops
+from repro_torch.models import hints
+from repro_torch.models.hints import constrain
 
 NEG_INF = -1e30  # finite "minus infinity" keeps online softmax NaN-free
 
@@ -96,7 +100,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               q_extra: Optional[torch.Tensor] = None,
               k_extra: Optional[torch.Tensor] = None,
               table: Optional[torch.Tensor] = None,
-              use_kernel: bool = False) -> torch.Tensor:
+              use_kernel: bool = False,
+              score_groups=()) -> torch.Tensor:
     """Flash-style attention, the scan path of ``repro.models.layers``.
 
     q: (B, S, Hq, D); k: (B, T, Hkv, D); v: (B, T, Hkv, Dv); q_pos
@@ -108,7 +113,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``use_kernel=True`` sends paged single-token causal decode (table
     given, S == 1) to ``kernels.ops.paged_attention`` — the Hopper kernel
-    on CUDA tensors.  Returns (B, S, Hq, Dv) in q.dtype."""
+    on CUDA tensors.  ``score_groups``: process groups over whose ranks
+    the head dims are split (each rank's q / k / v and extras hold a
+    slice of D and Dv): the scores are summed over them before the
+    softmax.  Returns (B, S, Hq, Dv) in q.dtype."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     Dv = v.shape[-1]
@@ -116,6 +124,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     G = Hq // Hkv
     if scale is None:
         scale = D ** -0.5
+    if hints.mesh_of(q, k, v, kv_pos, table) is not None:
+        # DTensors (a dry-run on a mesh): each rank's shard, by the
+        # "attention" / "paged_attention" layout of ``hints.LAYOUTS``
+        return hints.local_call(
+            "attention" if table is None else "paged_attention",
+            lambda groups, **a: attention(
+                **a, window=window, causal=causal, softcap=softcap,
+                kv_chunk=kv_chunk, scale=scale, use_kernel=use_kernel,
+                score_groups=groups.get("dims", ())),
+            dict(q=q, k=k, v=v, q_pos=q_pos, kv_pos=kv_pos, table=table,
+                 q_extra=q_extra, k_extra=k_extra), {"out": (B, S, Hq, Dv)})
     if use_kernel and table is not None and S == 1 and causal:
         return ops.paged_attention(q, k, v, kv_pos, table, q_pos,
                                    scale=scale, window=window,
@@ -172,6 +191,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = torch.einsum("bsngd,bcnd->bsngc", qf, kj.float())
         if qe is not None:
             s = s + torch.einsum("bsngd,bcnd->bsngc", qe, kej.float())
+        s = hints.all_sum(s, score_groups)
         if softcap > 0.0:
             s = softcap * torch.tanh(s / softcap)
         ok = pj[:, None, :] >= 0                               # (B,1,C)
@@ -247,13 +267,13 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    q = q.reshape(B, S, hq, hd)
-    k = k.reshape(B, S, hkv, hd)
-    v = v.reshape(B, S, hkv, hd)
+    q = hints.reshape(q, B, S, hq, hd)
+    k = hints.reshape(k, B, S, hkv, hd)
+    v = hints.reshape(v, B, S, hkv, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
+    q = constrain(rope(q, positions, cfg.rope_theta), "attn_q")
     k = rope(k, positions, cfg.rope_theta)
 
     attn_table = None
@@ -305,16 +325,24 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
             out = ops.flash_attention(*(t.transpose(1, 2).contiguous()
                                         for t in (q, k, v)),
                                       causal=True, window=window)
-            out = out.transpose(1, 2).reshape(B, S, hq * hd)
+            out = hints.reshape(out.transpose(1, 2), B, S, hq * hd)
             return row_dot(out, p["wo"]), cache
     if old is not None:
         k = torch.cat([old[0], k.to(old[0].dtype)], dim=1)
         v = torch.cat([old[1], v.to(old[1].dtype)], dim=1)
         kv_pos = torch.cat([old[2], positions], dim=1)
+        # the union in position order (unwritten entries last): the ring
+        # holds its keys in slot order, which follows the chunk size, and
+        # the float32 sums over a query's keys must not
+        order = torch.argsort(torch.where(kv_pos < 0, torch.iinfo(
+            kv_pos.dtype).max, kv_pos), dim=1, stable=True)
+        kv_pos = torch.gather(kv_pos, 1, order)
+        k, v = (torch.gather(t, 1, order[:, :, None, None].expand(t.shape))
+                for t in (k, v))
     out = attention(q, k, v, positions, kv_pos, window=window,
                     softcap=cfg.logits_softcap, kv_chunk=kv_chunk,
                     table=attn_table, use_kernel=use_kernel)
-    return row_dot(out.reshape(B, S, hq * hd), p["wo"]), cache
+    return row_dot(hints.reshape(out, B, S, hq * hd), p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +371,7 @@ def paged_cache_init(num_blocks: int, page_size: int, n_kv: int,
 def ring_write(buf: torch.Tensor, val: torch.Tensor, positions: torch.Tensor,
                per_row: bool = False, *,
                table: Optional[torch.Tensor] = None,
-               ring: int = 0) -> torch.Tensor:
+               ring: int = 0, kind: str = "") -> torch.Tensor:
     """Write ``val`` into ``buf`` in place; returns ``buf``.
 
     buf: (B, T, ...); val: (B, S, ...); positions: (B, S).  The four
@@ -361,7 +389,13 @@ def ring_write(buf: torch.Tensor, val: torch.Tensor, positions: torch.Tensor,
       ``logical = pos`` otherwise; of a chunk longer than the ring (or
       the table) only the last ``cap`` entries survive.  Entries with
       position < 0, past the table or on an unallocated (-1) page are
-      dropped — filtered, never clamped."""
+      dropped — filtered, never clamped.
+
+    ``kind`` names the cache leaf ("k", "pos", "ckv", ...): under sharding
+    hints the value written is pinned to that leaf's layout
+    (``cache/<kind>``), as the JAX version pins the updated buffer."""
+    if kind:
+        val = constrain(val, f"cache/{kind}")
     if table is not None:
         page = buf.shape[1]
         n_cols = table.shape[1]
@@ -388,12 +422,15 @@ def ring_write(buf: torch.Tensor, val: torch.Tensor, positions: torch.Tensor,
         _masked_put(buf, rows * T + slot, val, positions >= 0)
         return buf
     val = val.to(buf.dtype)
-    p0 = int(positions[0, 0]) % T
+    # the block's start stays on the device (no host read): S == T places
+    # it by a roll, S < T at slots start .. start + S - 1 with start
+    # clamped to fit, as dynamic_update_slice clamps it
+    p0 = positions[0, 0].long() % T
+    ar = torch.arange(S if S < T else T, device=buf.device)
     if S == T:
-        buf.copy_(torch.roll(val, p0, dims=1))
+        buf.copy_(torch.index_select(val, 1, (ar - p0) % T))
         return buf
-    start = min(p0, T - S)          # dynamic_update_slice clamps the start
-    buf[:, start:start + S] = val
+    buf.index_copy_(1, torch.clamp(p0, max=T - S) + ar, val)
     return buf
 
 
@@ -405,15 +442,65 @@ def _masked_put(buf: torch.Tensor, dst: torch.Tensor, val: torch.Tensor,
     entry's value to that entry's row — or, when nothing is kept, row 0's
     own value back to row 0 — so every repeated index carries identical
     values and the order of the writes cannot matter."""
+    if isinstance(buf, DTensor):
+        return _masked_put_sharded(buf, dst, val, ok)
     flat = buf.view((-1,) + tuple(buf.shape[2:]))
     dst, ok = dst.reshape(-1).long(), ok.reshape(-1)
     val = val.to(buf.dtype).reshape((dst.shape[0],) + tuple(flat.shape[1:]))
     any_ok = ok.any()
-    j0 = torch.argmax(ok.to(torch.int32))              # first kept entry
-    d0 = torch.where(any_ok, dst[j0], 0)
-    v0 = torch.where(any_ok, val[j0], flat[0])
+    # first kept entry, as a one-element index: a 0-dim index tensor
+    # would be read on the host
+    j0 = torch.argmax(ok.to(torch.int32)).reshape(1)
+    d0 = torch.where(any_ok, dst[j0][0], 0)
+    v0 = torch.where(any_ok, val[j0][0], flat[0])
     keep = ok.view((-1,) + (1,) * (val.ndim - 1))
     flat.index_put_((torch.where(ok, dst, d0),), torch.where(keep, val, v0))
+
+
+def _masked_put_sharded(buf, dst, val, ok) -> None:
+    """``_masked_put`` into a DTensor cache (a dry-run on a mesh): each
+    rank writes, into its own shard of ``buf``, the entries whose rows it
+    holds — the local masked scatter of a sharded cache update.  Every
+    rank needs every entry's row and value, so ``dst`` / ``ok`` are
+    replicated and ``val`` is replicated over the axes that split the
+    rows, and keeps ``buf``'s layout over the others."""
+    mesh = buf.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    dst, ok = (_as_dtensor(t, mesh).redistribute(mesh, rep).to_local()
+               for t in (dst, ok))
+    val = _as_dtensor(val.to(buf.dtype), mesh)
+    val = val.reshape((-1,) + tuple(buf.shape[2:]))
+    val = val.redistribute(mesh, [
+        Shard(p.dim - 1) if isinstance(p, Shard) and p.dim >= 2 else
+        Replicate() for p in buf.placements]).to_local()
+    shape, offset = _local_extent(buf)
+    T = buf.shape[1]
+    dst, ok = dst.reshape(-1).long(), ok.reshape(-1)
+    i0 = torch.div(dst, T, rounding_mode="floor") - offset[0]
+    i1 = dst % T - offset[1]
+    mine = ok & (i0 >= 0) & (i0 < shape[0]) & (i1 >= 0) & (i1 < shape[1])
+    local_dst = torch.where(mine, i0 * shape[1] + i1, 0)
+    _masked_put(buf.to_local(), local_dst, val, mine)
+
+
+def _local_extent(x):
+    """(local shape, global offset) of this rank's shard of DTensor ``x``
+    (even shards; a dim over several mesh dims splits major to minor)."""
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    shape, offset = list(x.shape), [0] * x.ndim
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard):
+            shape[p.dim] //= mesh.size(i)
+            offset[p.dim] = offset[p.dim] * mesh.size(i) + coord[i]
+    return shape, [o * n for o, n in zip(offset, shape)]
+
+
+def _as_dtensor(t, mesh):
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
 
 def cache_update(cache: dict, k: torch.Tensor, v: torch.Tensor,
@@ -423,9 +510,10 @@ def cache_update(cache: dict, k: torch.Tensor, v: torch.Tensor,
     T = cache["k"].shape[1]
     if k.shape[1] > T:
         k, v, positions = k[:, -T:], v[:, -T:], positions[:, -T:]
-    ring_write(cache["k"], k, positions, per_row=per_row)
-    ring_write(cache["v"], v, positions, per_row=per_row)
-    ring_write(cache["pos"], positions, positions, per_row=per_row)
+    ring_write(cache["k"], k, positions, per_row=per_row, kind="k")
+    ring_write(cache["v"], v, positions, per_row=per_row, kind="v")
+    ring_write(cache["pos"], positions, positions, per_row=per_row,
+               kind="pos")
     return cache["k"], cache["v"], cache["pos"], cache
 
 
@@ -435,9 +523,10 @@ def paged_cache_update(cache: dict, k: torch.Tensor, v: torch.Tensor,
     """Scatter S new entries into the paged pool through the block table,
     in place (position -1 and unallocated pages are write no-ops);
     ``ring`` > 0: sliding-window ring pages (see ``ring_write``)."""
-    ring_write(cache["k"], k, positions, table=table, ring=ring)
-    ring_write(cache["v"], v, positions, table=table, ring=ring)
-    ring_write(cache["pos"], positions, positions, table=table, ring=ring)
+    ring_write(cache["k"], k, positions, table=table, ring=ring, kind="k")
+    ring_write(cache["v"], v, positions, table=table, ring=ring, kind="v")
+    ring_write(cache["pos"], positions, positions, table=table, ring=ring,
+               kind="pos")
     return cache
 
 
@@ -479,7 +568,7 @@ def ffn_init(gen: torch.Generator, cfg, d_ff: Optional[int] = None, lead=(),
 def ffn_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     g = F.silu(x @ p["w_gate"].to(x.dtype))
     u = x @ p["w_up"].to(x.dtype)
-    return row_dot(g * u, p["w_down"])
+    return row_dot(constrain(g * u, "ffn_hidden"), p["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -495,6 +584,8 @@ def _expert_stack_init(gen: torch.Generator, E: int, d_in: int, d_out: int,
     need about 26 GB of temporaries."""
     w = torch.empty((*lead, E, d_in, d_out), dtype=torch.bfloat16,
                     device=device)
+    if is_fake(w):        # shapes only (the dry-run): there is nothing to draw
+        return w
     for m in w.view(-1, d_in, d_out):
         m.copy_(dense_init(gen, d_in, d_out, scale=scale, device=device))
     return w
@@ -555,27 +646,106 @@ def moe_capacity(T: int, cfg) -> int:
     return min(C, T * K)
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg):
-    """Sort-based top-k MoE.  x: (B,S,d) -> (out, aux_loss).
-
-    The reference's path on one device (one token group, G = 1): every
-    token of the call — idle serving rows' padding included — routes
-    through the router and fills the per-expert capacity in token order,
-    and assignments beyond capacity are dropped.  The experts run as
-    batched matmuls over the (E, C, d) buffer.  The Switch-style aux loss
-    is ``router_aux_coef * E * sum(mean prob * assignment fraction)``.
-    Expert parallelism over a mesh (``repro.models.moe_ep``) waits for
-    the distributed plane."""
-    B, S, d = x.shape
-    T = B * S
-    E, K = cfg.n_experts, cfg.top_k
-    C = moe_capacity(T, cfg)
-
-    xt = x.reshape(T, d)
-    logits = xt.float() @ p["router"].float()                   # (T,E)
+def _route(xt: torch.Tensor, router: torch.Tensor, K: int):
+    """Router probabilities and the normalized top-k gates: (probs (T,E),
+    gate_vals (T,K), expert_idx (T,K))."""
+    logits = xt.float() @ router.float()                        # (T,E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, K, dim=-1)        # (T,K)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
+    return probs, gate_vals, expert_idx
+
+
+def _expert_ffn(p: dict, buf: torch.Tensor, dtype) -> torch.Tensor:
+    """The batched expert SwiGLU over an (E, rows, d) buffer."""
+    g = F.silu(torch.bmm(buf, p["w_gate"].to(dtype)))
+    u = torch.bmm(buf, p["w_up"].to(dtype))
+    return torch.bmm(g * u, p["w_down"].to(dtype))              # (E,rows,d)
+
+
+def _combine_group(h: torch.Tensor, slot: torch.Tensor, order: torch.Tensor,
+                   gates_sorted: torch.Tensor, K: int) -> torch.Tensor:
+    """One group's gather back + combine with gates: (E, C, d) expert
+    outputs -> (Tg, d) float32.
+
+    Assignment i of the sorted order is flat assignment order[i] = token
+    * K + k, so writing row i at order[i] puts every (token, k) in its
+    own row of a (Tg, K, d) buffer (a dropped one gets the zero trash
+    row).  The K terms are then added onto 0.0 in float32 in the fixed
+    order k = 0, 1, ..., K-1: no atomics, so the bits are the same in
+    every run for any K.  At K = 2 this is the old scatter-add's
+    0 + a + b exactly."""
+    E, C, d = h.shape
+    h_flat = torch.cat([h.reshape(E * C, d),
+                        torch.zeros((1, d), dtype=h.dtype, device=h.device)])
+    per_assign = h_flat[slot].float() * gates_sorted[:, None]
+    by_token = torch.empty_like(per_assign)
+    by_token[order] = per_assign
+    by_token = by_token.reshape(-1, K, d)
+    out = torch.zeros(by_token[:, 0].shape, dtype=torch.float32,
+                      device=h.device)
+    for k in range(K):
+        out = out + by_token[:, k]
+    return out
+
+
+def _moe_groups(p: dict, xt: torch.Tensor, gate_vals, expert_idx, cfg,
+                G: int) -> torch.Tensor:
+    """Grouped dispatch on plain tensors: the T tokens split into G
+    contiguous groups, each with its own per-expert capacity buffer; the
+    experts run once over all groups' rows.  Returns (T, d) float32."""
+    T, d = xt.shape
+    E, K = cfg.n_experts, cfg.top_k
+    Tg = T // G
+    C = moe_capacity(Tg, cfg)
+    parts = [_moe_dispatch_group(xt[g * Tg:(g + 1) * Tg],
+                                 gate_vals[g * Tg:(g + 1) * Tg],
+                                 expert_idx[g * Tg:(g + 1) * Tg], E, K, C)
+             for g in range(G)]
+    buf = torch.stack([q[0] for q in parts], dim=1)             # (E,G,C,d)
+    h = _expert_ffn(p, buf.reshape(E, G * C, d), xt.dtype)
+    h = h.reshape(E, G, C, d)
+    return torch.cat([_combine_group(h[:, g], *parts[g][1:], K)
+                      for g in range(G)])
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg):
+    """Sort-based top-k MoE with grouped dispatch.  x: (B,S,d) -> (out,
+    aux_loss).
+
+    Every token of the call — idle serving rows' padding included —
+    routes through the router and fills its group's per-expert capacity
+    in token order; assignments beyond capacity are dropped.  Tokens
+    split into ``moe_groups`` contiguous groups (a sharding-hint extra,
+    the data-parallel shard count on a mesh; 1 without hints), each with
+    its own capacity of the group's share, as in
+    ``repro.models.layers.moe_apply``.  The experts run as batched
+    matmuls over the (E, C, d) buffers.  The Switch-style aux loss is
+    ``router_aux_coef * E * sum(mean prob * assignment fraction)``.  On a
+    mesh with the ``moe_ep`` extra, where the shapes allow, it is
+    ``models.moe_ep.moe_apply_ep`` (expert parallelism)."""
+    B, S, d = x.shape
+    T = B * S
+    E, K = cfg.n_experts, cfg.top_k
+    mesh = hints.get_mesh()
+    if mesh is not None and hints.get_extra("moe_ep", False):
+        from repro_torch.launch.mesh import axis_sizes, data_axes, model_axis
+        from repro_torch.models.moe_ep import moe_apply_ep
+        dp, mp = data_axes(mesh), model_axis(mesh)
+        sizes = axis_sizes(mesh)
+        n_mp = sizes[mp]
+        n_dp = math.prod(sizes[a] for a in dp)
+        if (E % n_mp == 0 and B % n_dp == 0
+                and (B // n_dp) * S % n_mp == 0):
+            return moe_apply_ep(p, x, cfg, mesh, dp, mp)
+    G = int(hints.get_extra("moe_groups", 1))
+    if T % G != 0:
+        G = 1
+    if hints.mesh_of(x, p["w_gate"]) is not None:
+        return _moe_sharded(p, x, cfg, G)
+
+    xt = x.reshape(T, d)
+    probs, gate_vals, expert_idx = _route(xt, p["router"], K)
 
     # --- load-balance auxiliary loss (Switch-style) ---------------------
     me = probs.mean(dim=0)                                      # (E,)
@@ -584,32 +754,111 @@ def moe_apply(p: dict, x: torch.Tensor, cfg):
                   torch.full((T * K,), 1.0 / (T * K), device=x.device))
     aux = cfg.router_aux_coef * E * torch.sum(me * ce)
 
-    buf, slot, order, gates_sorted = _moe_dispatch_group(
-        xt, gate_vals, expert_idx, E, K, C)
-
-    # --- batched expert FFN ----------------------------------------------
-    g = F.silu(torch.bmm(buf, p["w_gate"].to(x.dtype)))
-    u = torch.bmm(buf, p["w_up"].to(x.dtype))
-    h = torch.bmm(g * u, p["w_down"].to(x.dtype))               # (E,C,d)
-
-    # --- gather back + combine with gates --------------------------------
-    # Assignment i of the sorted order is flat assignment order[i] = token
-    # * K + k, so writing row i at order[i] puts every (token, k) in its
-    # own row of a (T, K, d) buffer (a dropped one gets the zero trash
-    # row).  The K terms are then added onto 0.0 in float32 in the fixed
-    # order k = 0, 1, ..., K-1: no atomics, so the bits are the same in
-    # every run for any K.  At K = 2 this is the old scatter-add's
-    # 0 + a + b exactly.
-    h_flat = torch.cat([h.reshape(E * C, d),
-                        torch.zeros((1, d), dtype=h.dtype, device=h.device)])
-    per_assign = h_flat[slot].float() * gates_sorted[:, None]
-    by_token = torch.empty_like(per_assign)
-    by_token[order] = per_assign
-    by_token = by_token.reshape(T, K, d)
-    out = torch.zeros((T, d), dtype=torch.float32, device=x.device)
-    for k in range(K):
-        out = out + by_token[:, k]
+    if G > 1:
+        out = _moe_groups(p, xt, gate_vals, expert_idx, cfg, G)
+    else:
+        C = moe_capacity(T, cfg)
+        buf, slot, order, gates_sorted = _moe_dispatch_group(
+            xt, gate_vals, expert_idx, E, K, C)
+        h = _expert_ffn(p, buf, x.dtype)                        # (E,C,d)
+        out = _combine_group(h, slot, order, gates_sorted, K)
     out = out.to(x.dtype)
     if "shared" in p:
         out = out + ffn_apply(p["shared"], xt)
     return out.reshape(B, S, d), aux
+
+
+def _moe_sharded(p: dict, x, cfg, G: int):
+    """``moe_apply`` on DTensors (a dry-run on a mesh), outside expert
+    parallelism.  The G token groups split over the mesh dims that hold
+    the tokens split (whole groups per rank: every gather and scatter of
+    the dispatch stays on the rank); with G = 1, or groups that do not
+    divide, the tokens are replicated.  The (G, E, C, d) buffer is pinned
+    group-local ("moe_buffer_local"), then to the rule's expert layout
+    ("moe_buffer"); the experts run on each rank's slice of it
+    (``_experts_sharded``); their output is pinned back ("moe_h",
+    "moe_h_local") and combined on the rank; the tokens get
+    "moe_tokens"."""
+    from torch.distributed.tensor import Partial
+    B, S, d = x.shape
+    T = B * S
+    E, K = cfg.n_experts, cfg.top_k
+    mesh = hints.mesh_of(x, p["w_gate"])
+    R = Replicate()
+    xt = hints.reshape(x, T, d)
+    tok = [i for i, pl in enumerate(getattr(xt, "placements", ()))
+           if G > 1 and isinstance(pl, Shard) and pl.dim == 0]
+    if G % math.prod(mesh.size(i) for i in tok):
+        tok = []
+    gpl = [Shard(0) if i in tok else R for i in range(mesh.ndim)]
+    xt_l = hints.to_local(xt, mesh, gpl)
+    probs, gate_vals, expert_idx = _route(
+        xt_l, hints.to_local(p["router"], mesh, [R] * mesh.ndim, tok), K)
+
+    # aux loss over all T tokens: the per-rank sums are all-reduced
+    part = [Partial() if i in tok else R for i in range(mesh.ndim)]
+    me = hints.to_local(hints.from_local(probs.sum(0), mesh, part, (E,)),
+                        mesh, [R] * mesh.ndim) / T
+    cnt = torch.zeros((E,), dtype=torch.float32, device=xt_l.device)
+    cnt.index_add_(0, expert_idx.reshape(-1),
+                   torch.ones(expert_idx.numel(), device=xt_l.device))
+    ce = hints.to_local(hints.from_local(cnt, mesh, part, (E,)), mesh,
+                        [R] * mesh.ndim) / (T * K)
+    aux = hints.from_local(cfg.router_aux_coef * E * torch.sum(me * ce),
+                           mesh, [R] * mesh.ndim, ())
+
+    Gl = G // math.prod(mesh.size(i) for i in tok)
+    Tg = T // G
+    C = moe_capacity(Tg, cfg)
+    parts = [_moe_dispatch_group(xt_l[g * Tg:(g + 1) * Tg],
+                                 gate_vals[g * Tg:(g + 1) * Tg],
+                                 expert_idx[g * Tg:(g + 1) * Tg], E, K, C)
+             for g in range(Gl)]
+    buf = hints.from_local(torch.stack([q[0] for q in parts]), mesh, gpl,
+                           (G, E, C, d))
+    buf = constrain(buf, "moe_buffer_local")
+    buf = constrain(buf, "moe_buffer")                          # (G,E,C,d)
+    h = _experts_sharded(p, buf, x.dtype)
+    h = constrain(h, "moe_h")
+    h = constrain(h, "moe_h_local")
+    h_l = hints.to_local(h, mesh, gpl)
+    out = torch.cat([_combine_group(h_l[g], *parts[g][1:], K)
+                     for g in range(Gl)]).to(x.dtype)
+    out = constrain(hints.from_local(out, mesh, gpl, (T, d)), "moe_tokens")
+    if "shared" in p:
+        out = out + ffn_apply(p["shared"], xt)
+    return hints.reshape(out, B, S, d), aux
+
+
+def _experts_sharded(p: dict, buf, dtype):
+    """The expert SwiGLU on each rank's slice of a (G, E, C, d) DTensor
+    buffer: a mesh dim that splits E runs its experts only; one that
+    splits d (decode's weight-stationary layout) contracts its slice of d
+    against the matching rows of w_gate / w_up, all-reduces the partial
+    sums, and keeps w_down's output split the same way; any other
+    all-gathers the weights (FSDP)."""
+    from torch.distributed import _functional_collectives as funcol
+    mesh = buf.device_mesh
+    R = Replicate()
+    w_in, w_out, d_split = [], [], []
+    split = [i for i, pl in enumerate(buf.placements) if isinstance(pl, Shard)]
+    for i, pl in enumerate(buf.placements):
+        if isinstance(pl, Shard) and pl.dim == 1:
+            w_in.append(Shard(0)), w_out.append(Shard(0))
+        elif isinstance(pl, Shard) and pl.dim == 3:
+            w_in.append(Shard(1)), w_out.append(Shard(2)), d_split.append(i)
+        else:
+            w_in.append(R), w_out.append(R)
+    b = buf.to_local()
+    G, El, C, dl = b.shape
+    wg, wu = (hints.to_local(p[n], mesh, w_in, split).to(dtype)
+              for n in ("w_gate", "w_up"))
+    wd = hints.to_local(p["w_down"], mesh, w_out, split).to(dtype)
+    rows = b.permute(1, 0, 2, 3).reshape(El, G * C, dl)
+    g, u = torch.bmm(rows, wg), torch.bmm(rows, wu)
+    for i in d_split:
+        g = funcol.all_reduce(g, "sum", mesh.get_group(i))
+        u = funcol.all_reduce(u, "sum", mesh.get_group(i))
+    h = torch.bmm(F.silu(g) * u, wd)
+    h = h.reshape(El, G, C, -1).permute(1, 0, 2, 3)
+    return hints.from_local(h, mesh, list(buf.placements), buf.shape)

@@ -14,8 +14,7 @@ shared ``qk_rope_dim`` rope key):
   paged-decode kernel's head-tiled instance.
 
 As in the rest of the port, cache writes update the cache tensors in
-place.  The JAX version's ``constrain`` calls are sharding hints for a
-device mesh; on one card they are no-ops and are left out.
+place.
 """
 from __future__ import annotations
 
@@ -24,6 +23,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models import hints
+from repro_torch.models.hints import constrain
 from repro_torch.models.layers import (attention, dense_init, gather_pages,
                                        gather_pos, ring_write, rmsnorm,
                                        rmsnorm_init, rope)
@@ -118,9 +119,11 @@ def mla_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         # per-cache-kind block tables: MLA layers are full-attention kind
         table = table["attn"]
     if cache is not None and table is not None:
-        ring_write(cache["ckv"], ckv, positions, table=table)
-        ring_write(cache["krope"], krope, positions, table=table)
-        ring_write(cache["pos"], positions, positions, table=table)
+        ring_write(cache["ckv"], ckv, positions, table=table, kind="ckv")
+        ring_write(cache["krope"], krope, positions, table=table,
+                   kind="krope")
+        ring_write(cache["pos"], positions, positions, table=table,
+                   kind="pos")
         if decode:
             # pool-shaped latents flow straight into the paged attention
             ckv_all, krope_all = cache["ckv"], cache["krope"]
@@ -132,7 +135,8 @@ def mla_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     elif cache is not None:
         for name, val in (("ckv", ckv), ("krope", krope),
                           ("pos", positions)):
-            ring_write(cache[name], val, positions, per_row=masked_slots)
+            ring_write(cache[name], val, positions, per_row=masked_slots,
+                       kind=name)
         ckv_all, krope_all = cache["ckv"], cache["krope"]
         kv_pos = cache["pos"]
     else:
@@ -143,6 +147,10 @@ def mla_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         # enters as the second contraction (q_extra / k_extra)
         wk_b = p["wk_b"].to(x.dtype).reshape(kr, H, dn)
         q_lat = torch.einsum("bshd,khd->bshk", q_nope, wk_b).contiguous()
+        # align the absorbed queries' latent / rope dims with the cache
+        # sharding (kr and dr live on the model axis during decode)
+        q_lat = constrain(q_lat, "attn_q")
+        q_rope = constrain(q_rope, "attn_q")
         v_lat = ckv_all[:, :, None, :]       # (B,T,1,kr) / pool (N,P,1,kr)
         o_lat = attention(q_lat, v_lat, v_lat, positions, kv_pos,
                           scale=scale, kv_chunk=kv_chunk, q_extra=q_rope,
@@ -160,5 +168,5 @@ def mla_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         q = torch.cat([q_nope, q_rope], dim=-1)
         o = attention(q, k, v, positions, kv_pos, scale=scale,
                       kv_chunk=kv_chunk)
-    out = o.reshape(B, S, H * dv) @ p["wo"].to(o.dtype)
+    out = hints.reshape(o, B, S, H * dv) @ p["wo"].to(o.dtype)
     return out, cache

@@ -30,6 +30,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import mamba_scan_ref
+from repro_torch.models import hints
+from repro_torch.models.hints import constrain
 from repro_torch.models.layers import (dense_init, rmsnorm, rmsnorm_init,
                                        row_dot)
 
@@ -97,6 +99,29 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y, xp[:, -(K - 1):]
 
 
+def _mamba_scan(x, dt, b, c, a, h0, rows, use_kernel: bool):
+    """The selective scan: (y (B,S,di) f32, final state).  The kernel
+    (``use_kernel``) writes the final state into ``h0``'s storage, rows
+    that are not valid untouched there, and returns ``h0`` itself as the
+    state.  On DTensors (a dry-run on a mesh) it runs on each rank's shard
+    by the "mamba_scan" layout of ``hints.LAYOUTS``."""
+    if hints.mesh_of(x, h0) is not None:
+        B, S, di = x.shape
+        return hints.local_call(
+            "mamba_scan",
+            lambda _, **t: hints.scan_steps(
+                lambda **u: _mamba_scan(**u, use_kernel=use_kernel), t,
+                ("x", "dt", "b", "c")),
+            dict(x=x, dt=dt, b=b, c=c, a=a, h0=h0, rows=rows),
+            {"y": x.shape, "h": (B, di, a.shape[-1])})
+    if use_kernel:
+        y = ops.mamba_scan(x, dt, b.contiguous(), c.contiguous(), a, h0=h0,
+                           out_dtype=torch.float32, rows=rows, state_out=h0)
+        return y, h0
+    return mamba_scan_ref(x, dt, b, c, a, h0=h0, out_dtype=torch.float32,
+                          return_state=True, rows=rows)
+
+
 def mamba_apply(p: dict, x: torch.Tensor, cfg, *,
                 cache: Optional[dict] = None,
                 valid: Optional[torch.Tensor] = None,
@@ -120,18 +145,9 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg, *,
     A = -torch.exp(p["A_log"])                                   # (di,ds) f32
 
     h0 = cache["h"] if cache is not None else None
-    if use_kernel:
-        # the final state lands in the cache's storage; rows that are not
-        # valid are left untouched there
-        y = ops.mamba_scan(xs, dt, Bm.contiguous(), Cm.contiguous(), A,
-                           h0=h0, out_dtype=torch.float32, rows=valid,
-                           state_out=h0)
-    else:
-        y, h1 = mamba_scan_ref(xs, dt, Bm, Cm, A, h0=h0,
-                               out_dtype=torch.float32, return_state=True,
-                               rows=valid)
-        if h0 is not None:
-            h0.copy_(h1)
+    y, h1 = _mamba_scan(xs, dt, Bm, Cm, A, h0, valid, use_kernel)
+    if h0 is not None and h1 is not h0:
+        h0.copy_(constrain(h1, "cache/h"))
     y = y.to(x.dtype) + xs * p["D"].to(x.dtype)
     y = y * F.silu(z)
     out = row_dot(y, p["out_proj"])
@@ -139,7 +155,7 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg, *,
         if valid is not None:
             conv_new = torch.where(valid[:, None, None], conv_new,
                                    cache["conv"])
-        cache["conv"].copy_(conv_new)
+        cache["conv"].copy_(constrain(conv_new, "cache/conv"))
     return out, cache
 
 
@@ -189,6 +205,35 @@ def _rwkv_step(S, xs_t, u):
     return S, o
 
 
+def _rwkv_scan(r, k, v, w, u, s0, rows, use_kernel: bool):
+    """The wkv recurrence: (o (B,S,H,hd) f32, final state; rows that are
+    not valid keep ``s0``).  The kernel (``use_kernel``) writes the final
+    state into ``s0``'s storage and returns ``s0`` itself as the state.
+    On DTensors (a dry-run on a mesh) it runs on each rank's shard by the
+    "rwkv_scan" layout of ``hints.LAYOUTS``."""
+    B, S, H, hd = r.shape
+    if hints.mesh_of(r, s0) is not None:
+        return hints.local_call(
+            "rwkv_scan",
+            lambda _, **t: hints.scan_steps(
+                lambda **a: _rwkv_scan(**a, use_kernel=use_kernel), t,
+                ("r", "k", "v", "w")),
+            dict(r=r, k=k, v=v, w=w, u=u, s0=s0, rows=rows),
+            {"o": r.shape, "s": (B, H, hd, hd)})
+    if use_kernel:
+        o = ops.rwkv_scan(r, k, v, w, u, s0=s0, out_dtype=torch.float32,
+                          rows=rows, state_out=s0)
+        return o, s0
+    h0 = s0 if s0 is not None else torch.zeros(
+        (B, H, hd, hd), dtype=torch.float32, device=r.device)
+    step = lambda S_, xs_t: _rwkv_step(S_, xs_t, u[None])
+    tm = lambda a: a.transpose(0, 1)                             # time-major
+    S1, o = _chunked_scan(step, h0, (tm(r), tm(k), tm(v), tm(w)), S)
+    if s0 is not None and rows is not None:
+        S1 = torch.where(rows[:, None, None, None], S1, s0)
+    return o.transpose(0, 1), S1                                 # (B,S,H,hd)
+
+
 def rwkv_apply(p: dict, x: torch.Tensor, cfg, *, cache: Optional[dict] = None,
                valid: Optional[torch.Tensor] = None,
                use_kernel: bool = False):
@@ -208,36 +253,28 @@ def rwkv_apply(p: dict, x: torch.Tensor, cfg, *, cache: Optional[dict] = None,
     k = (xk @ p["wk"].to(x.dtype)).reshape(B, S, H, hd)
     v = (xv @ p["wv"].to(x.dtype)).reshape(B, S, H, hd)
     g = F.silu(xg @ p["wg"].to(x.dtype))
-    # data-dependent decay (the Finch contribution)
+    # data-dependent decay (the Finch contribution); on a mesh the LoRA's
+    # small wA is gathered whole per rank (FSDP) unless xw's width is
+    # split as wA's rows are (decode's hidden split): then the
+    # contraction stays local and its partial sums are reduced
+    wA = (p["wA"] if hints.splits_alike(xw, -1, p["wA"], 0)
+          else hints.unsplit(p["wA"], 0))
     w_dd = p["w0"].float() + (
-        torch.tanh(xw @ p["wA"].to(x.dtype)) @ p["wB"].to(x.dtype)).float()
+        torch.tanh(xw @ wA.to(x.dtype)) @ p["wB"].to(x.dtype)).float()
     w = torch.exp(-torch.exp(w_dd)).reshape(B, S, H, hd)         # in (0,1)
     u = p["u"].float()                                           # (H,hd)
 
     S0 = cache["state"] if cache is not None else None
-    if use_kernel:
-        # the final state lands in the cache's storage; rows that are not
-        # valid are left untouched there
-        o = ops.rwkv_scan(r, k, v, w, u, s0=S0, out_dtype=torch.float32,
-                          rows=valid, state_out=S0)
-    else:
-        h0 = S0 if S0 is not None else torch.zeros(
-            (B, H, hd, hd), dtype=torch.float32, device=x.device)
-        step = lambda S_, xs_t: _rwkv_step(S_, xs_t, u[None])
-        tm = lambda a: a.transpose(0, 1)                         # time-major
-        S1, o = _chunked_scan(step, h0, (tm(r), tm(k), tm(v), tm(w)), S)
-        o = o.transpose(0, 1)                                    # (B,S,H,hd)
-        if S0 is not None:
-            if valid is not None:
-                S1 = torch.where(valid[:, None, None, None], S1, S0)
-            S0.copy_(S1)
+    o, S1 = _rwkv_scan(r, k, v, w, u, S0, valid, use_kernel)
+    if S0 is not None and S1 is not S0:
+        S0.copy_(constrain(S1, "cache/state"))
     o = rmsnorm(o, p["ln_x"], cfg.norm_eps).to(x.dtype)
     out = row_dot(o.reshape(B, S, d) * g, p["wo"])
     if cache is not None:
         shift = x[:, -1, :]
         if valid is not None:
             shift = torch.where(valid[:, None], shift, cache["shift"])
-        cache["shift"].copy_(shift)
+        cache["shift"].copy_(constrain(shift, "cache/shift"))
     return out, cache
 
 

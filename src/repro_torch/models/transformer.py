@@ -16,12 +16,16 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                       create_selective_checkpoint_contexts)
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.models import mla, ssm
+from repro_torch.models import hints
+from repro_torch.models.hints import constrain
 from repro_torch.models.config import (ATTN, DENSE, MAMBA, MOE, RWKV, SWA,
                                        ModelConfig)
 from repro_torch.models.layers import (attn_apply, attn_init, cache_init,
@@ -120,6 +124,7 @@ def layer_apply(lp: dict, spec, cfg: ModelConfig, x: torch.Tensor,
     S, unless ``scan_kernel`` (None: as ``use_kernel``) is False.  MoE
     FFNs return their load-balance loss as ``aux_loss``."""
     _check_layer(spec)
+    x = constrain(x, "residual")
     h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
     if spec.mixer in (MAMBA, RWKV):
         valid = ((positions >= 0).any(dim=1)
@@ -147,7 +152,9 @@ def layer_apply(lp: dict, spec, cfg: ModelConfig, x: torch.Tensor,
     else:
         h = ffn_apply(lp["ffn"], h)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + h, cache, aux
+    # the residual leaves the layer in its hinted layout too, so that no
+    # partial sum (a row-split projection's) crosses a remat boundary
+    return constrain(x + h, "residual"), cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -233,9 +240,54 @@ def embed_inputs(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
         x = (batch["embeds"].to(torch.bfloat16)
              @ params["ext_proj"].to(torch.bfloat16))
         if "tokens" in batch:
-            x = x + params["embed"][batch["tokens"].long()]
+            x = x + _lookup(params["embed"], batch["tokens"])
         return x
-    return params["embed"][batch["tokens"].long()]
+    return _lookup(params["embed"], batch["tokens"])
+
+
+def _lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of the embedding table (``_lookup_sharded`` for a DTensor
+    table: a dry-run on a mesh)."""
+    if isinstance(embed, DTensor):
+        return _lookup_sharded(embed, tokens)
+    return embed[tokens.long()]
+
+
+def _lookup_sharded(embed, tokens):
+    """Vocabulary-parallel lookup (Megatron's): a mesh dim that splits the
+    table's rows looks up only the ids it holds, zeros the others and
+    leaves the rows a partial sum there; one that splits its columns
+    splits the rows' width; any other follows the ids' layout."""
+    from torch.distributed.tensor import Partial, Shard
+    mesh = embed.device_mesh
+    R = Replicate()
+    ids_pl = list(tokens.placements) if isinstance(tokens, DTensor) else (
+        [R] * mesh.ndim)
+    tok, out, vocab = [], [], []
+    for i, p in enumerate(embed.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            tok.append(R), out.append(Partial()), vocab.append(i)
+        elif isinstance(p, Shard):
+            tok.append(R), out.append(Shard(tokens.ndim))
+        elif (isinstance(ids_pl[i], Shard)
+              and tokens.shape[ids_pl[i].dim] % mesh.size(i) == 0):
+            tok.append(ids_pl[i]), out.append(ids_pl[i])
+        else:
+            tok.append(R), out.append(R)
+    split = [i for i, p in enumerate(out) if not isinstance(p, Replicate)]
+    ids = hints.to_local(tokens.long(), mesh, tok)
+    # a negative id counts from the end, as the plain lookup's index
+    ids = torch.where(ids < 0, ids + embed.shape[0], ids)
+    table = hints.to_local(embed, mesh, list(embed.placements), split)
+    n = table.shape[0]
+    coord, chunk = mesh.get_coordinate(), 0
+    for i in vocab:                      # the rows split major to minor
+        chunk = chunk * mesh.size(i) + coord[i]
+    local = ids - chunk * n
+    mine = (local >= 0) & (local < n)
+    rows = F.embedding(local.clamp(0, n - 1), table) * mine[..., None]
+    return hints.from_local(rows, mesh, out,
+                            (*tokens.shape, embed.shape[-1]))
 
 
 def unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -286,11 +338,17 @@ def _remat_wrap(body, remat: bool, remat_policy: str):
     period, as flash attention's, dispatches no matmul and is run again);
     "none" is another way of saying ``remat=False``: keep them all.  That
     is the meaning ``core/workload.py`` gives "none"; the JAX forward
-    itself falls through to a full checkpoint for it."""
+    itself falls through to a full checkpoint for it.  Sharding hints
+    active at the forward are active in the recompute too."""
     if remat_policy not in ("full", "none", *_SAVED_MATMULS):
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
     if not remat or remat_policy == "none":
         return body
+    ctx, plain = hints.current(), body
+    if ctx is not None:
+        def body(*args):          # the recompute runs on an autograd thread
+            with hints.restored(ctx):
+                return plain(*args)
     if remat_policy == "full":
         return lambda *args: checkpoint(body, *args, use_reentrant=False)
     return lambda *args: checkpoint(
@@ -367,7 +425,7 @@ def mtp_hidden(params: dict, cfg: ModelConfig, h: torch.Tensor,
     next_tokens: (B,S) = token t+1.  Returns (hidden for the shared head,
     aux loss).  ``use_kernel`` / ``scan_kernel`` as in ``forward``."""
     mp = params["mtp"]
-    e = params["embed"][next_tokens.long()]
+    e = _lookup(params["embed"], next_tokens)
     z = torch.cat([rmsnorm(h, mp["norm_h"], cfg.norm_eps),
                    rmsnorm(e, mp["norm_e"], cfg.norm_eps)], dim=-1)
     z = z @ mp["proj"].to(z.dtype)

@@ -37,6 +37,7 @@ import torch
 from repro_torch import DeviceLike, device_of, prng, resolve_device
 from repro_torch.models.config import ATTN, MAMBA, RWKV, SWA, ModelConfig
 from repro_torch.models.layers import NEG_INF, swa_ring_blocks
+from repro_torch.models import hints
 from repro_torch.models.transformer import (check_ported, forward, init_cache,
                                             unembed)
 
@@ -152,6 +153,7 @@ def make_engine_step(cfg: ModelConfig, *, kv_chunk: int = 1024,
         if penalize:
             lg = apply_repetition_penalty(
                 lg, seen, torch.from_numpy(rep_penalty).to(dev))
+        lg = hints.unsplit(lg, -1)       # the vocabulary whole per rank
         tok = torch.argmax(lg, dim=-1, keepdim=True).to(torch.int32)
         if sampled is not None:
             idx, keys, temp, p, k = sampled

@@ -59,9 +59,12 @@ def _has_mtp(params, cfg: ModelConfig) -> bool:
 
 
 def grads_of(params, loss: torch.Tensor):
-    """d loss / d params as a tree of params' structure."""
+    """d loss / d params as a tree of params' structure; a param the loss
+    does not reach (the token embedding of a batch of frontend
+    embeddings only) gets zeros, as ``jax.grad`` gives."""
     flat = list(leaves(params))
-    return unflatten(params, iter(torch.autograd.grad(loss, flat)))
+    return unflatten(params, iter(torch.autograd.grad(
+        loss, flat, allow_unused=True, materialize_grads=True)))
 
 
 def make_train_step(cfg: ModelConfig, optimizer, *, microbatches: int = 1,

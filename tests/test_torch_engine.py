@@ -268,7 +268,7 @@ print(" ".join(mods))
                           text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
     mods = set(proc.stdout.split())
-    assert len(mods) >= 47
+    assert len(mods) >= 54
     assert {"repro_torch.models.ssm", "repro_torch.kernels.rwkv_scan",
             "repro_torch.configs.rwkv6_7b",
             "repro_torch.kernels.flash_attention", "repro_torch.tree",
@@ -282,5 +282,8 @@ print(" ".join(mods))
             "repro_torch.core.pipeline", "repro_torch.core.dht",
             "repro_torch.core.broker", "repro_torch.core.compression",
             "repro_torch.core.executor", "repro_torch.serve.router",
-            "repro_torch.serve.faults", "repro_torch.configs.gemma3_12b"
-            } <= mods
+            "repro_torch.serve.faults", "repro_torch.configs.gemma3_12b",
+            "repro_torch.launch.dryrun", "repro_torch.launch.specs",
+            "repro_torch.launch.roofline", "repro_torch.launch.mesh",
+            "repro_torch.launch.shardings", "repro_torch.models.hints",
+            "repro_torch.models.moe_ep"} <= mods

@@ -220,11 +220,32 @@ failure:
    tick must be equal; the predicted peak and the roofline's ms are
    printed beside ``max_memory_allocated`` and the tick's time on CUDA
    events and by device time.
+17. the staged execution as an SPMD pipeline, and the examples.  17a
+   runs ``core.executor.spmd_pipeline`` over a 4-stage ("stage",) mesh
+   of 4 gloo processes that all compute on the one card: qwen3-8b at
+   full width, 8 of its 36 layers (2 a stage, each rank holding its own
+   as ``Shard(0)`` DTensors), ``layer_apply`` with the flash kernel and
+   no cache under ``torch.no_grad()``, 8 microbatches of (1, 4096, 4096)
+   bf16.  Every rank's outputs must equal, bit for bit, a one-process
+   forward of the same layers over the same microbatches on the card,
+   and every rank must count 16 flash launches (its 8 microbatches x 2
+   layers; each stage process sets the count to 0 before the pipeline
+   and reports it after).  Prints the one-process forward's ms on CUDA
+   events and wall, each rank's stage compute on CUDA events and its
+   pipeline wall time, the bytes sent and broadcast, and the transport
+   (gloo takes host memory: "host-staged").  17b runs each
+   ``examples_torch`` script with ``--device cuda`` as a process of its
+   own, all seven at once (``EXAMPLE_RUNS``): ``train_e2e --preset 100m
+   --steps 300``, ``serve_batched --kernel`` for qwen3-8b and rwkv6-7b,
+   ``serve_fleet``, ``quickstart``, ``decentralized_pipeline`` (whose
+   tail spawns 4 gloo processes of its own) and ``estimate_cluster``;
+   each must exit 0 (their self-checks are assertions), and each one's
+   wall time and self-check lines are printed.
 
 The phases run in the order 1-2c, 10c, 5, 11, 13b (the kernel checks
 and the times a profiler takes before serving), 2d, 3-4, 6-7, 8-10b, 9b,
 9c-9e, 12-12d, 13, 14 (the sweep), 15, 14 (the large run and times),
-16; each model is freed before the next is drawn.  The total time
+16, 17; each model is freed before the next is drawn.  The total time
 is printed before the result lines.
 
 Output: human-readable lines, then one JSON line ``{"kernels": [...]}``,
@@ -4037,6 +4058,257 @@ def print_build_report(build, libs) -> None:
         f"{counts['HGMMA']} HGMMA, {counts['HMMA']} HMMA instructions"))
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: spmd_pipeline over a stage mesh, and the examples
+# ---------------------------------------------------------------------------
+
+PIPE_STAGES = 4                  # gloo processes, all on the one card
+PIPE_LAYERS = 8                  # of qwen3-8b's 36, 2 a stage
+PIPE_MICRO = 8                   # microbatches of (1, 4096, 4096) bf16
+PIPE_S = 4096
+PIPE_TIMEOUT = 600               # s for the four stage processes
+EXAMPLE_TIMEOUT = 600            # s for each example
+EXAMPLE_RUNS = [                 # each with --device cuda, all at once
+    ("train_e2e.py", "--preset", "100m", "--steps", "300"),
+    ("serve_batched.py", "--arch", "qwen3-8b", "--kernel"),
+    ("serve_batched.py", "--arch", "rwkv6-7b", "--kernel"),
+    ("serve_fleet.py",),
+    ("quickstart.py",),
+    ("decentralized_pipeline.py",),
+    ("estimate_cluster.py",),
+]
+
+
+def pipe_config():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen3-8b"), n_layers=PIPE_LAYERS)
+
+
+def pipe_stage_params(cfg, stage, device):
+    """Stage ``stage``'s layers stacked leaf by leaf, (layers a stage, ...):
+    layer i drawn on the card from a generator seeded with i (seed 0 plus
+    the layer's index), so every cut of the model draws the same
+    weights."""
+    from repro_torch.models.transformer import layer_init
+    from repro_torch.tree import tree_map
+    per = PIPE_LAYERS // PIPE_STAGES
+    layers = [layer_init(torch.Generator(device).manual_seed(i),
+                         cfg.period[0], cfg, device=device)
+              for i in range(stage * per, (stage + 1) * per)]
+    return tree_map(lambda *ts: torch.stack(ts), *layers)
+
+
+def pipe_inputs(cfg, device):
+    gen = torch.Generator(device).manual_seed(PIPE_LAYERS)
+    return torch.randn((PIPE_MICRO, 1, PIPE_S, cfg.d_model), generator=gen,
+                       device=device).to(torch.bfloat16)
+
+
+def pipe_stage_fn(cfg, positions):
+    """A stage: ``layer_apply`` over its layers, flash on, no cache."""
+    from repro_torch.models.transformer import layer_apply
+    from repro_torch.tree import tree_map
+
+    def stage_fn(p, x):
+        for j in range(PIPE_LAYERS // PIPE_STAGES):
+            x = layer_apply(tree_map(lambda t: t[j], p), cfg.period[0], cfg,
+                            x, positions, None, use_kernel=True)[0]
+        return x
+    return stage_fn
+
+
+def pipe_stage_main(rank, port, tmp):
+    """One stage process of phase 17a: a gloo rank computing on cuda:0."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.core.executor import spmd_pipeline
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=PIPE_STAGES)
+    try:
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+        mesh = make_host_mesh(PIPE_STAGES)           # the card
+        cfg = pipe_config()
+        local = pipe_stage_params(cfg, rank, dev)
+        params = tree_map(lambda t: DTensor.from_local(
+            t[None], mesh, [Shard(0)], shape=(PIPE_STAGES, *t.shape),
+            stride=(t.numel(), *t.stride())), local)
+        xs = pipe_inputs(cfg, dev)
+        positions = torch.arange(PIPE_S, dtype=torch.int32,
+                                 device=dev)[None]
+        fn = pipe_stage_fn(cfg, positions)
+        events = []
+
+        def timed(p, x):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            y = fn(p, x)
+            b.record()
+            events.append((a, b))
+            return y
+        stats = {}
+        with torch.no_grad():
+            fn(local, xs[0])                         # warm-up, not counted
+            torch.cuda.synchronize()
+            dist.barrier()
+            flash_attention_fwd.launches = 0
+            t0 = time.perf_counter()
+            out = spmd_pipeline(timed, params, xs, mesh, stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = flash_attention_fwd.launches
+        ref = torch.load(Path(tmp) / "ref.pt", map_location=dev)
+        torch.save(dict(stats, launches=launches, wall_s=wall,
+                        stage_ms=sum(a.elapsed_time(b) for a, b in events),
+                        equal=bool(torch.equal(out, ref)),
+                        max_abs_err=float((out.float() - ref.float()).abs()
+                                          .max()),
+                        shape=tuple(out.shape)),
+                   Path(tmp) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_pipeline(fwd):
+    """17a: qwen3-8b's layers at full width (8 of 36, 2 a stage) through
+    ``spmd_pipeline`` over a 4-stage mesh of gloo processes on the one
+    card, against a one-process forward of the same layers over the same
+    microbatches on the card, bit for bit; every rank's flash launches
+    must be its microbatches x its layers."""
+    import tempfile
+    import torch.multiprocessing as mp
+    cfg = pipe_config()
+    dev = torch.device("cuda")
+    stages = [pipe_stage_params(cfg, s, dev) for s in range(PIPE_STAGES)]
+    xs = pipe_inputs(cfg, dev)
+    fn = pipe_stage_fn(cfg, torch.arange(PIPE_S, dtype=torch.int32,
+                                         device=dev)[None])
+    n_params = sum(t.numel() for p in stages for t in _leaves(p))
+    with torch.no_grad():
+        fn(stages[0], xs[0])                          # warm-up
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        a.record()
+        ref = []
+        for m in range(PIPE_MICRO):
+            h = xs[m]
+            for p in stages:
+                h = fn(p, h)
+            ref.append(h)
+        ref = torch.stack(ref)
+        b.record()
+        torch.cuda.synchronize()
+        ref_wall, ref_ms = time.perf_counter() - t0, a.elapsed_time(b)
+    if not torch.isfinite(ref.float()).all():
+        fail("17a: the one-process forward is not finite")
+    del stages, xs
+    gc.collect()
+    torch.cuda.empty_cache()
+    mb = ref[0].numel() * ref.element_size()
+    print(f"pipeline 17a: qwen3-8b {PIPE_LAYERS} of 36 layers "
+          f"({n_params / 1e9:.3f} B parameters, "
+          f"{n_params * 2 / 1e9:.2f} GB bf16; "
+          f"{n_params * 2 / PIPE_STAGES / 1e9:.2f} GB a stage), "
+          f"{PIPE_MICRO} microbatches of (1, {PIPE_S}, {cfg.d_model}) bf16 "
+          f"({mb / 1e6:.2f} MB each); one-process forward "
+          f"{ref_ms:.2f} ms on CUDA events, {ref_wall * 1e3:.2f} ms wall")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(ref.cpu(), Path(tmp) / "ref.pt")
+        t0 = time.perf_counter()
+        ctx = mp.spawn(pipe_stage_main, args=(free_port(), tmp),
+                       nprocs=PIPE_STAGES, join=False)
+        deadline = time.time() + PIPE_TIMEOUT
+        while not ctx.join(timeout=5):
+            if time.time() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                fail(f"17a: the stage processes ran past {PIPE_TIMEOUT}s")
+        spawn_wall = time.perf_counter() - t0
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt")
+                 for r in range(PIPE_STAGES)]
+    per = PIPE_LAYERS // PIPE_STAGES
+    for r, st in enumerate(ranks):
+        print(f"pipeline 17a rank {r}: stage {st['stage']}, "
+              f"{st['stage_calls']} stage calls, {st['launches']} flash "
+              f"launches, stage compute {st['stage_ms']:.2f} ms on CUDA "
+              f"events, pipeline {st['wall_s'] * 1e3:.2f} ms wall; sent "
+              f"{st['bytes_sent'] / 1e6:.2f} MB, received "
+              f"{st['bytes_received'] / 1e6:.2f} MB, broadcast "
+              f"{st['bytes_broadcast'] / 1e6:.2f} MB; transport "
+              f"{st['transport']}; outputs {'equal' if st['equal'] else 'DIFFER'}"
+              f" (max abs err {st['max_abs_err']:.3e})")
+        if st["stage"] != r or st["stage_calls"] != PIPE_MICRO:
+            fail(f"17a rank {r}: stage {st['stage']}, "
+                 f"{st['stage_calls']} stage calls")
+        if st["launches"] != PIPE_MICRO * per:
+            fail(f"17a rank {r}: {st['launches']} flash launches, expected "
+                 f"{PIPE_MICRO * per}")
+        if not st["equal"] or st["shape"] != tuple(ref.shape):
+            fail(f"17a rank {r}: the pipeline's outputs differ from the "
+                 f"one-process forward (max abs err {st['max_abs_err']})")
+    sent = sum(st["bytes_sent"] for st in ranks)
+    bcast = ranks[-1]["bytes_broadcast"]
+    wall = max(st["wall_s"] for st in ranks)
+    print(f"pipeline 17a: {PIPE_STAGES} stages == one-process forward bit "
+          f"for bit on every rank; wall {wall * 1e3:.2f} ms (slowest "
+          f"rank) against {ref_wall * 1e3:.2f} ms; sends {sent / 1e6:.2f} "
+          f"MB, broadcast {bcast / 1e6:.2f} MB to each of "
+          f"{PIPE_STAGES - 1} ranks; transport {ranks[0]['transport']}; "
+          f"stage processes {spawn_wall:.1f}s from spawn to exit")
+    return {"launches": sum(st["launches"] for st in ranks),
+            "ranks": [st["launches"] for st in ranks]}
+
+
+def phase_examples():
+    """17b: each ``examples_torch`` script with ``--device cuda`` as a
+    process of its own, all at once; any nonzero exit fails."""
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(job):
+            script, *args = job
+            extra = (["--ckpt-dir", str(Path(tmp) / "ckpt")]
+                     if script == "train_e2e.py" else [])
+            t = time.time()
+            r = subprocess.run([sys.executable,
+                                str(ROOT / "examples_torch" / script),
+                                *args, *extra, "--device", "cuda"],
+                               env=env, capture_output=True, text=True,
+                               timeout=EXAMPLE_TIMEOUT, cwd=str(ROOT))
+            return job, r, time.time() - t
+        with ThreadPoolExecutor(len(EXAMPLE_RUNS)) as pool:
+            runs = list(pool.map(run, EXAMPLE_RUNS))
+    for job, r, wall in runs:
+        name = " ".join(job)
+        if r.returncode != 0:
+            fail(f"17b {name}: exit {r.returncode}: {r.stdout[-1500:]}"
+                 f"{r.stderr[-2500:]}")
+        lines = r.stdout.splitlines()
+        keep = [ln for ln in lines if "✓" in ln or "final loss" in ln
+                or "hash-rule" in ln or "max err" in ln] or lines[-1:]
+        print(f"example {name}: exit 0 in {wall:.1f}s; "
+              + "; ".join(ln.strip() for ln in keep))
+    print(f"examples 17b: {len(runs)} runs exit 0 in "
+          f"{time.time() - t0:.1f}s of wall time (all at once)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4148,6 +4420,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_dryrun()
     phase_dryrun_vs_real(paged_attention_fwd, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe = phase_pipeline(flash_attention_fwd)
+    phase_examples()
 
     result = [
         # qwen3-8b's decode shape leads; jamba's (G = 8) follows with the
@@ -4205,7 +4481,12 @@ def main() -> int:
                     "causal":
                         dict(fa_gemma["causal"],
                              launches=gt_launches["all"]
-                             - gt_launches["window"])}},
+                             - gt_launches["window"]),
+                    # phase 17a: counted in each stage process
+                    "qwen3-8b spmd_pipeline stages B=1 Hq=32 Hkv=8 "
+                    "S=4096 D=128 causal, 4 gloo ranks on the card":
+                        {"launches": pipe["launches"],
+                         "launches_per_rank": pipe["ranks"]}}},
         # the decentralized plane's whole gradient (2.788 B bf16 elements);
         # launches: every payload and the gradient of its hand-driven step
         {"name": "int8_quantize", "route": "cuda",

@@ -12,16 +12,18 @@ autograd as the ML engine.
   in place to the parametric ops it hosts.
 * ``LocalCluster``: wires executors together through a ``Bus`` that
   accounts every transferred byte (validating the DAG cut-size model).
-
-The JAX package's ``spmd_pipeline`` (a ``shard_map`` pipeline over a
-device mesh) is not here: the port has no mesh yet.
+* ``spmd_pipeline``: the production mapping — the same staged execution
+  as a GPipe pipeline over one axis of a ``DeviceMesh``, one process per
+  stage, activations passed by point-to-point sends.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.core.dag import DAG, LOSS, PLACEHOLDER
@@ -29,7 +31,7 @@ from repro_torch.models import ssm
 from repro_torch.models.layers import (attn_apply, attn_init, embed_init,
                                        ffn_apply, ffn_init, moe_apply,
                                        moe_init, rmsnorm, rmsnorm_init)
-from repro_torch.tree import flatten_with_paths, unflatten
+from repro_torch.tree import flatten_with_paths, leaves, tree_map, unflatten
 
 
 # ---------------------------------------------------------------------------
@@ -374,3 +376,135 @@ class LocalCluster:
                               want=want, record=False)
             out = wanted if wanted is not None else out
         return out
+
+
+# ---------------------------------------------------------------------------
+# SPMD pipeline over one mesh axis: production mapping
+# ---------------------------------------------------------------------------
+
+def _stage_slice(leaf: torch.Tensor, mesh, dim: int, n_stages: int,
+                 stage: int) -> torch.Tensor:
+    """This rank's stage of one stacked parameter leaf."""
+    if leaf.shape[0] != n_stages:
+        raise ValueError(
+            f"spmd_pipeline: a parameter's leading axis is {leaf.shape[0]}, "
+            f"the mesh axis has {n_stages} stages")
+    if not isinstance(leaf, DTensor):
+        return leaf[stage]
+    want = [Replicate()] * mesh.ndim
+    want[dim] = Shard(0)
+    if leaf.device_mesh != mesh or list(leaf.placements) != want:
+        raise ValueError(
+            f"spmd_pipeline: a DTensor parameter is placed "
+            f"{tuple(leaf.placements)}; each stage's slice needs {tuple(want)}"
+            f" on the pipeline's mesh")
+    return leaf.to_local()[0]
+
+
+def spmd_pipeline(stage_fn: Callable, stacked_params, x_microbatches:
+                  torch.Tensor, mesh, axis: str = "stage", *,
+                  stats: Optional[dict] = None) -> torch.Tensor:
+    """Run a GPipe-style pipeline over the mesh axis ``axis``: the
+    counterpart of ``repro.core.executor.spmd_pipeline``, called by every
+    rank of ``mesh`` (one process per stage).
+
+    ``stage_fn(params_i, x) -> y`` keeps x's shape and dtype (JAX's scan
+    carry needs the same).  ``stacked_params``: a tree (dict / tuple /
+    list) of tensors whose leading axis has one entry per stage.  As
+    DTensors placed ``Shard(0)`` over ``axis`` (``Replicate`` on any other
+    mesh dim) — JAX's ``P(axis)`` — each rank holds only its own stage's
+    slice.  Plain tensors are accepted too: each rank then holds the whole
+    stack, as its caller made it, and reads its own slice.
+    ``x_microbatches``: (n_micro, ...); only stage 0 reads it.
+
+    Stage i runs microbatch m at tick m + i of n_micro + n_stages - 1
+    ticks, as in JAX.  Where JAX runs ``stage_fn`` on zeros or a clipped
+    microbatch in the fill and drain ticks and drops the result, a rank
+    here skips the ticks in which it holds no live microbatch (the outputs
+    are the same): each rank calls ``stage_fn`` n_micro times, not
+    n_micro + n_stages - 1.  After each tick stage i sends its output to
+    stage i + 1 (JAX's ``ppermute`` by [(i, i + 1)]) with
+    ``batch_isend_irecv`` on ``mesh.get_group(axis)``.  The last stage
+    keeps microbatch m's output in slot m and broadcasts the
+    (n_micro, ...) outputs over that group: every rank returns them.
+    Forward only: the sends carry no autograd edge.
+
+    Each rank computes on its own device: the CPU on a CPU mesh, else
+    ``cuda:(global rank % device count)``, so several ranks may share a
+    card.  The microbatches and parameters must already be there.  Gloo
+    moves host memory, so over a gloo group CUDA tensors travel through
+    pinned host buffers ("host-staged"); otherwise they are sent as they
+    are ("direct").  ``stats``, if given, receives this rank's ``stage``,
+    ``transport``, ``stage_calls`` and the bytes it sent, received and
+    broadcast (``bytes_sent``, ``bytes_received``, ``bytes_broadcast``;
+    the last counted on the broadcasting stage)."""
+    dim = list(mesh.mesh_dim_names).index(axis)
+    n_stages = mesh.size(dim)
+    stage = mesh.get_local_rank(axis)
+    group = mesh.get_group(axis)
+    n_micro = x_microbatches.shape[0]
+    device = (torch.device("cpu") if mesh.device_type == "cpu" else
+              torch.device(mesh.device_type,
+                           dist.get_rank() % torch.cuda.device_count()))
+    params = tree_map(lambda t: _stage_slice(t, mesh, dim, n_stages, stage),
+                      stacked_params)
+    for t in [x_microbatches, *leaves(params)]:
+        if t.device != device:
+            raise ValueError(f"spmd_pipeline: a tensor is on {t.device}; "
+                             f"stage {stage} computes on {device}")
+    staged = device.type != "cpu" and dist.get_backend(group) == "gloo"
+    shape, dtype = x_microbatches.shape[1:], x_microbatches.dtype
+    st = dict(stage=stage, transport="host-staged" if staged else "direct",
+              stage_calls=0, bytes_sent=0, bytes_received=0,
+              bytes_broadcast=0)
+    nbytes = x_microbatches[0].numel() * x_microbatches.element_size()
+    succ = (dist.get_global_rank(group, stage + 1)
+            if stage < n_stages - 1 else None)
+    pred = dist.get_global_rank(group, stage - 1) if stage else None
+    send_buf = recv_buf = None
+    if staged:
+        send_buf, recv_buf = (torch.empty(shape, dtype=dtype,
+                                          pin_memory=True) for _ in "sr")
+    outs = torch.empty((n_micro, *shape), dtype=dtype, device=device)
+    x_in = None
+    for t in range(n_micro + n_stages - 1):
+        m = t - stage
+        recv = pred is not None and 0 <= m + 1 < n_micro
+        y = None
+        if 0 <= m < n_micro:
+            y = stage_fn(params, x_microbatches[m] if stage == 0 else x_in)
+            st["stage_calls"] += 1
+            if y.shape != shape or y.dtype != dtype:
+                raise ValueError(
+                    f"spmd_pipeline: stage_fn returned {tuple(y.shape)} "
+                    f"{y.dtype} for {tuple(shape)} {dtype}")
+            if succ is None:
+                outs[m] = y
+        ops = []
+        if y is not None and succ is not None:
+            if staged:
+                send_buf.copy_(y)
+            ops.append(dist.P2POp(dist.isend, send_buf if staged else y,
+                                  succ, group))
+            st["bytes_sent"] += nbytes
+        if recv:
+            if not staged:
+                recv_buf = torch.empty(shape, dtype=dtype, device=device)
+            ops.append(dist.P2POp(dist.irecv, recv_buf, pred, group))
+            st["bytes_received"] += nbytes
+        for work in dist.batch_isend_irecv(ops) if ops else ():
+            work.wait()
+        if recv:
+            x_in = recv_buf.to(device) if staged else recv_buf
+    buf = outs
+    if staged:
+        buf = torch.empty(outs.shape, dtype=dtype, pin_memory=True)
+        if succ is None:
+            buf.copy_(outs)
+    dist.broadcast(buf, dist.get_global_rank(group, n_stages - 1),
+                   group=group)
+    if succ is None:
+        st["bytes_broadcast"] = buf.numel() * buf.element_size()
+    if stats is not None:
+        stats.update(st)
+    return buf.to(device) if staged else buf

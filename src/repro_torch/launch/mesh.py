@@ -22,6 +22,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from repro_torch import DeviceLike, resolve_device
+
 
 def fake_world(world_size: int) -> None:
     """Make the default process group a fake one of ``world_size`` ranks
@@ -62,12 +64,13 @@ def make_production_mesh(*, multi_pod: bool = False,
 
 
 def make_host_mesh(n_stages: int = 0, *,
-                   device_type: str = "cpu") -> DeviceMesh:
+                   device: DeviceLike = None) -> DeviceMesh:
     """One-axis ("stage",) mesh over the ranks of the initialized default
-    process group (gloo across host processes, say) — for a pipelined
-    executor, not for the dry-run."""
+    process group (gloo processes, say) — for ``spmd_pipeline``, not for
+    the dry-run.  Its ranks compute on the card unless ``device="cpu"``
+    is passed; without a GPU that request raises."""
     n = dist.get_world_size()
-    return init_device_mesh(device_type, (n_stages or n,),
+    return init_device_mesh(resolve_device(device).type, (n_stages or n,),
                             mesh_dim_names=("stage",))
 
 

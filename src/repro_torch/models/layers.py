@@ -70,6 +70,29 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
 
 
+class _Silu(torch.autograd.Function):
+    """``jax.nn.silu`` at the JAX package's rounding points: every
+    primitive of its forward (XLA's logistic is ``1 / (1 + exp(-x))``)
+    and of its transposed backward rounds to the input's dtype, where
+    ``F.silu`` rounds once."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, s = ctx.saved_tensors
+        return ct * s + (ct * x) * (s * (1 - s))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU rounded where the JAX package's rounds (``_Silu``)."""
+    return _Silu.apply(x)
+
+
 def rmsnorm_init(d: int, lead=(), device=None) -> torch.Tensor:
     return torch.zeros((*lead, d), dtype=torch.float32, device=device)
 
@@ -566,7 +589,7 @@ def ffn_init(gen: torch.Generator, cfg, d_ff: Optional[int] = None, lead=(),
 
 
 def ffn_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    g = F.silu(x @ p["w_gate"].to(x.dtype))
+    g = silu(x @ p["w_gate"].to(x.dtype))
     u = x @ p["w_up"].to(x.dtype)
     return row_dot(constrain(g * u, "ffn_hidden"), p["w_down"])
 
@@ -658,7 +681,7 @@ def _route(xt: torch.Tensor, router: torch.Tensor, K: int):
 
 def _expert_ffn(p: dict, buf: torch.Tensor, dtype) -> torch.Tensor:
     """The batched expert SwiGLU over an (E, rows, d) buffer."""
-    g = F.silu(torch.bmm(buf, p["w_gate"].to(dtype)))
+    g = silu(torch.bmm(buf, p["w_gate"].to(dtype)))
     u = torch.bmm(buf, p["w_up"].to(dtype))
     return torch.bmm(g * u, p["w_down"].to(dtype))              # (E,rows,d)
 
@@ -859,6 +882,6 @@ def _experts_sharded(p: dict, buf, dtype):
     for i in d_split:
         g = funcol.all_reduce(g, "sum", mesh.get_group(i))
         u = funcol.all_reduce(u, "sum", mesh.get_group(i))
-    h = torch.bmm(F.silu(g) * u, wd)
+    h = torch.bmm(silu(g) * u, wd)
     h = h.reshape(El, G, C, -1).permute(1, 0, 2, 3)
     return hints.from_local(h, mesh, list(buf.placements), buf.shape)

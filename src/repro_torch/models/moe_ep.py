@@ -27,11 +27,11 @@ import math
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch.distributed import _functional_collectives as funcol
 from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.models import hints
+from repro_torch.models.layers import silu
 
 
 def _sort_dispatch(xt, keys, n_buckets: int, cap: int, payload=()):
@@ -168,7 +168,7 @@ def moe_apply_ep(p: dict, x, cfg, mesh, dp_axes: Sequence[str],
 
     # ---- stage 2: bucket by local expert, run experts -------------------
     (ebuf,), order2, slot2, _ = _sort_dispatch(recv, recv_le, E_local, c_loc)
-    g = F.silu(torch.bmm(ebuf, wg))
+    g = silu(torch.bmm(ebuf, wg))
     h = torch.bmm(g * torch.bmm(ebuf, wu), wd)          # (E_local, c_loc, d)
 
     # gather back to arrival order
@@ -194,7 +194,7 @@ def moe_apply_ep(p: dict, x, cfg, mesh, dp_axes: Sequence[str],
         # shared expert: replicated weights, strip-local compute
         sg, su, sd = (loc(p["shared"][n], rep).to(wdt)
                       for n in ("w_gate", "w_up", "w_down"))
-        out = out + (F.silu(xt @ sg) * (xt @ su)) @ sd
+        out = out + (silu(xt @ sg) * (xt @ su)) @ sd
 
     # rebuild the replicated residual strip layout (bf16 on the wire)
     out_full = _AllGather.apply(out.to(torch.bfloat16), group, r).to(

@@ -33,7 +33,7 @@ from repro_torch.kernels.ref import mamba_scan_ref
 from repro_torch.models import hints
 from repro_torch.models.hints import constrain
 from repro_torch.models.layers import (dense_init, rmsnorm, rmsnorm_init,
-                                       row_dot)
+                                       row_dot, silu)
 
 
 def _chunked_scan(step_fn, h0, xs, length: int):
@@ -136,7 +136,7 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg, *,
     xs, z = xz.chunk(2, dim=-1)                                  # (B,S,di)
     conv_prev = cache["conv"] if cache is not None else None
     xs, conv_new = _causal_conv(xs, p["conv_w"], p["conv_b"], conv_prev)
-    xs = F.silu(xs)
+    xs = silu(xs)
 
     proj = xs @ p["x_proj"].to(x.dtype)                          # (B,S,dtr+2ds)
     dt, Bm, Cm = proj.split([dtr, ds, ds], dim=-1)
@@ -149,7 +149,7 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg, *,
     if h0 is not None and h1 is not h0:
         h0.copy_(constrain(h1, "cache/h"))
     y = y.to(x.dtype) + xs * p["D"].to(x.dtype)
-    y = y * F.silu(z)
+    y = y * silu(z)
     out = row_dot(y, p["out_proj"])
     if cache is not None:
         if valid is not None:
@@ -252,7 +252,7 @@ def rwkv_apply(p: dict, x: torch.Tensor, cfg, *, cache: Optional[dict] = None,
     r = (xr @ p["wr"].to(x.dtype)).reshape(B, S, H, hd)
     k = (xk @ p["wk"].to(x.dtype)).reshape(B, S, H, hd)
     v = (xv @ p["wv"].to(x.dtype)).reshape(B, S, H, hd)
-    g = F.silu(xg @ p["wg"].to(x.dtype))
+    g = silu(xg @ p["wg"].to(x.dtype))
     # data-dependent decay (the Finch contribution); on a mesh the LoRA's
     # small wA is gathered whole per rank (FSDP) unless xw's width is
     # split as wA's rows are (decode's hidden split): then the

@@ -287,3 +287,31 @@ print(" ".join(mods))
             "repro_torch.launch.roofline", "repro_torch.launch.mesh",
             "repro_torch.launch.shardings", "repro_torch.models.hints",
             "repro_torch.models.moe_ep"} <= mods
+
+
+def test_examples_import_without_jax_or_repro():
+    """Every script of ``examples_torch`` imports (its ``main`` is not run)
+    with ``jax`` and ``repro`` blocked."""
+    root = Path(__file__).resolve().parents[1]
+    code = """
+import importlib.abc, importlib.util, pathlib, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+names = []
+for path in sorted(pathlib.Path(sys.argv[1]).glob("*.py")):
+    spec = importlib.util.spec_from_file_location("ex_" + path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    names.append(path.stem)
+assert not any(k.split(".")[0] in ("jax", "repro") for k in sys.modules)
+print(" ".join(names))
+"""
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.run([sys.executable, "-c", code,
+                           str(root / "examples_torch")], capture_output=True,
+                          text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == sorted(
+        p.stem for p in (root / "examples").glob("*.py"))

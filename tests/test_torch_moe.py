@@ -130,7 +130,7 @@ def _index_add_combine(p, x, cfg):
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
     buf, slot, order, gates_sorted = TL._moe_dispatch_group(
         xt, gate_vals, expert_idx, E, K, C)
-    g = torch.nn.functional.silu(torch.bmm(buf, p["w_gate"].to(x.dtype)))
+    g = TL.silu(torch.bmm(buf, p["w_gate"].to(x.dtype)))
     u = torch.bmm(buf, p["w_up"].to(x.dtype))
     h = torch.bmm(g * u, p["w_down"].to(x.dtype))
     h_flat = torch.cat([h.reshape(E * C, d), h.new_zeros((1, d))])

@@ -241,11 +241,25 @@ failure:
    tail spawns 4 gloo processes of its own) and ``estimate_cluster``;
    each must exit 0 (their self-checks are assertions), and each one's
    wall time and self-check lines are printed.
+18. the port's static checker and the kernels' interfaces: 18a runs
+   ``python -m repro_torch.analysis --strict --format json`` on the
+   checkout (exit 0 required; files scanned, new / baselined /
+   suppressed counts and its wall time printed); 18b holds every
+   ``extern "C"`` function that the checker's KRN001 parses from
+   ``csrc/*.cu`` (16 over 5 sources) to the built libraries: the
+   functions each wrapper binds are exactly its source's, each is a
+   symbol of the built library, and each live ctypes binding's
+   ``argtypes`` / ``restype`` match the declaration in count and width;
+   18c shows that paged decode, flash and the int8 pair refuse a CUDA
+   input that requires grad under grad mode ("has no backward", nothing
+   launched) and launch once under ``torch.no_grad()``, equal to their
+   plain versions.  The phase's time is printed with the card's name and
+   power limit.
 
 The phases run in the order 1-2c, 10c, 5, 11, 13b (the kernel checks
 and the times a profiler takes before serving), 2d, 3-4, 6-7, 8-10b, 9b,
 9c-9e, 12-12d, 13, 14 (the sweep), 15, 14 (the large run and times),
-16, 17; each model is freed before the next is drawn.  The total time
+16, 17, 18; each model is freed before the next is drawn.  The total time
 is printed before the result lines.
 
 Output: human-readable lines, then one JSON line ``{"kernels": [...]}``,
@@ -4309,6 +4323,142 @@ def phase_examples():
           f"{time.time() - t0:.1f}s of wall time (all at once)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the port's static checker, and the kernels' interfaces on the card
+# ---------------------------------------------------------------------------
+
+def phase_checker(card: str) -> dict:
+    """18a runs ``python -m repro_torch.analysis --strict --format json``
+    on this checkout: it must exit 0.  18b holds the five built libraries
+    to the ``extern "C"`` declarations KRN001 parses from ``csrc/*.cu``
+    (16 functions): after each wrapper's ``_lib()`` has typed its
+    bindings, the functions it bound are exactly the parsed ones, each is
+    a symbol of the built library, and each one's live ``argtypes`` /
+    ``restype`` have the parsed C signature's count and widths (the
+    bindings the static rule cannot see, a ``getattr`` loop, included).
+    18c: each wrapper that gained a ``refuse_autograd`` guard (paged
+    decode, flash, the int8 pair) raises "has no backward" on a CUDA
+    input that requires grad under grad mode, launching nothing, and
+    under ``torch.no_grad()`` launches once and agrees with its plain
+    version."""
+    import ctypes
+    import os
+    from repro_torch.analysis.rules.krn001 import ctype_kind, load_exports
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import mamba_scan as MS
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import quantize as QZ
+    from repro_torch.kernels import rwkv_scan as RS
+    from repro_torch.kernels.ref import (flash_attention_ref,
+                                         int8_dequantize_ref,
+                                         int8_quantize_ref,
+                                         paged_attention_ref)
+    t0 = time.time()
+    # 18a
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--strict",
+         "--format", "json"], cwd=str(ROOT), capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), timeout=300)
+    lint_s = time.time() - t0
+    if proc.returncode != 0:
+        fail(f"18a repro_torch.analysis --strict exited {proc.returncode}: "
+             f"{proc.stdout[-3000:]}{proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout)
+    summary = report["summary"]
+    print(f"18a repro_torch.analysis --strict: exit 0 in {lint_s:.2f}s of "
+          f"wall time; {report['files_scanned']} files, "
+          f"{len(report['rules'])} rules; {summary['new']} new, "
+          f"{summary['baselined']} baselined, {summary['suppressed']} "
+          f"suppressed, {summary['stale_baseline']} stale")
+    # 18b
+    exports = load_exports(ROOT / "src" / "repro_torch" / "kernels" / "csrc")
+    wrappers = {"flash_attention": FA, "mamba_scan": MS,
+                "paged_attention": PA, "quantize": QZ, "rwkv_scan": RS}
+    if sorted(wrappers) != build.sources():
+        fail(f"18b kernel sources {build.sources()} are not the wrapped "
+             f"{sorted(wrappers)}")
+    checked = []
+    for name, mod in sorted(wrappers.items()):
+        lib = mod._lib()
+        declared = {f: d for f, d in exports.items()
+                    if d.source == f"{name}.cu"}
+        bound = {f for f, v in vars(lib).items()
+                 if isinstance(v, ctypes._CFuncPtr)}
+        if bound != set(declared):
+            fail(f"18b {name}: the wrapper binds {sorted(bound)}, "
+                 f"csrc/{name}.cu declares {sorted(declared)}")
+        for fname, decl in sorted(declared.items()):
+            if not hasattr(lib, fname):
+                fail(f"18b {build.library_path(name).name} has no {fname}")
+            fn = getattr(lib, fname)
+            args = None if fn.argtypes is None else [
+                ctype_kind(t.__name__) for t in fn.argtypes]
+            ret = ctype_kind(None if fn.restype is None
+                             else fn.restype.__name__)
+            if args != list(decl.param_kinds) or ret != decl.ret_kind:
+                fail(f"18b {fname}: bound ({args}) -> {ret}; "
+                     f"csrc/{decl.source}:{decl.line} declares "
+                     f"{list(decl.param_kinds)} -> {decl.ret_kind}")
+            checked.append(fname)
+    if len(checked) != 16:
+        fail(f"18b checked {len(checked)} exports, want 16: {checked}")
+    print(f"18b kernel interfaces: {len(checked)} exports of "
+          f"{len(wrappers)} libraries bound by their wrappers, present in "
+          f"the built libraries, argtypes and restype equal to csrc's "
+          f"declarations in count and width")
+    # 18c
+    pc = pool_case(2, 4, 2, 32, 8, 4, 3, seed=0, dtype=torch.bfloat16)
+    fq, fk, fv = flash_case(1, 4, 2, 128, 128, 64, seed=0,
+                            dtype=torch.bfloat16)
+    x = torch.randn(4096, generator=torch.Generator().manual_seed(0)).cuda()
+    codes, scales = QZ.int8_quantize_fwd(x)
+    guards = (
+        ("paged_attention", PA.paged_attention_fwd,
+         lambda g: run_kernel(PA.paged_attention_fwd, dict(pc, q=g(pc["q"]))),
+         lambda out: _close(out, paged_attention_ref(
+             pc["q"], pc["k"], pc["v"], pc["pos"], pc["table"], pc["q_pos"]),
+             TOL["bfloat16"], "18c paged_attention")),
+        ("flash_attention", FA.flash_attention_fwd,
+         lambda g: FA.flash_attention_fwd(g(fq), fk, fv),
+         lambda out: _flash_err(*out, *flash_attention_ref(
+             fq, fk, fv, return_lse=True), TOL["bfloat16"], "18c")),
+        ("int8_quantize", QZ.int8_quantize_fwd,
+         lambda g: QZ.int8_quantize_fwd(g(x)),
+         lambda out: same_bits(out[0], int8_quantize_ref(x)[0])
+         or fail("18c int8_quantize differs from the plain version")),
+        ("int8_dequantize", QZ.int8_dequantize_fwd,
+         lambda g: QZ.int8_dequantize_fwd(codes, g(scales), x.shape),
+         lambda out: same_bits(out, int8_dequantize_ref(codes, scales,
+                                                        x.shape))
+         or fail("18c int8_dequantize differs from the plain version")),
+    )
+    for name, fwd, call, check in guards:
+        before = fwd.launches
+        try:
+            call(lambda t: t.detach().clone().requires_grad_())
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            fail(f"18c {name} on a CUDA input that requires grad did not "
+                 f"raise")
+        with torch.no_grad():
+            out = call(lambda t: t.detach().clone().requires_grad_())
+        torch.cuda.synchronize()
+        if fwd.launches != before + 1:
+            fail(f"18c {name}: {fwd.launches - before} launches, want 1 "
+                 f"(the call under no_grad)")
+        check(out)
+        print(f"18c {name} on a CUDA input that requires grad under grad "
+              f"mode: raised, nothing launched; under no_grad: launched "
+              f"once, equal to the plain version")
+    dt = time.time() - t0
+    print(f"phase 18: {dt:.1f}s ({card})")
+    return {"lint_s": lint_s, "files": report["files_scanned"],
+            "exports": len(checked), "seconds": dt}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4424,6 +4574,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     pipe = phase_pipeline(flash_attention_fwd)
     phase_examples()
+    phase_checker(card)
 
     result = [
         # qwen3-8b's decode shape leads; jamba's (G = 8) follows with the

@@ -5,9 +5,12 @@
 For tensors on the CPU it runs the plain version
 (``ref.flash_attention_ref``).  For CUDA tensors it checks what the
 kernel takes, allocates the outputs, and launches on PyTorch's current
-stream — or raises; nothing falls back.  ``flash_attention_fwd.launches``
-counts launches, so a run can show that its attention went through the
-kernel (``window_launches`` counts those with a sliding window apart).
+stream — or raises; nothing falls back.  Called directly, it raises on
+CUDA inputs that require grad under grad mode (the launch leaves no
+autograd node); ``FlashAttention`` runs it with grad mode off and
+differentiates it.  ``flash_attention_fwd.launches`` counts launches, so
+a run can show that its attention went through the kernel
+(``window_launches`` counts those with a sliding window apart).
 
 ``FlashAttention`` is the differentiable call: its forward is
 ``flash_attention_fwd``; its backward, ``flash_attention_bwd``, is plain
@@ -22,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.ref import flash_attention_ref
 
 MAX_HEAD_DIM = 256
@@ -90,6 +93,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    scale=scale, return_lse=True)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: unsupported device {q.device}")
+    refuse_autograd("flash_attention", q, k, v)
     _check(q, k, v)
     B, Hq, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]

@@ -5,10 +5,12 @@ For tensors on the CPU it runs the plain version
 (``ref.paged_attention_ref``).  For CUDA tensors it checks what the
 kernel takes, allocates the output and the float32 scratch of the
 split-K partials, and launches on PyTorch's current stream — or raises;
-nothing falls back.  ``paged_attention_fwd.launches`` counts calls that
-launched the kernel (one each: the split kernel merges its partials in
-the same launch; a head-tiled instance launches its split kernel and the
-merge kernel), so a run can show that its decode ticks went through it;
+nothing falls back.  The kernel has no backward, so on CUDA it also
+raises when grad mode is on and an input requires grad.
+``paged_attention_fwd.launches`` counts calls that launched the kernel
+(one each: the split kernel merges its partials in the same launch; a
+head-tiled instance launches its split kernel and the merge kernel), so
+a run can show that its decode ticks went through it;
 ``paged_attention_fwd.window_launches`` counts those of them with a
 window, so a run can tell a model's sliding-window layers from its
 global ones.  The launch is the custom op ``repro_torch::paged_attention``
@@ -37,7 +39,7 @@ from typing import Optional
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.ref import PAGES_PER_SPLIT, paged_attention_ref
 
 MAX_HEAD_DIM = 256                # of the split kernel
@@ -181,6 +183,7 @@ def paged_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    q_extra=q_extra, k_extra=k_extra)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_fwd: unsupported device {q.device}")
+    refuse_autograd("paged_attention", q, k, v, q_extra, k_extra)
     return torch.ops.repro_torch.paged_attention(
         q, k, v, pos, table, q_pos, q_extra, k_extra, float(scale),
         int(window), float(softcap))

@@ -4,10 +4,11 @@
 For tensors on the CPU they run the plain versions
 (``ref.int8_quantize_ref`` / ``ref.int8_dequantize_ref``).  For CUDA
 tensors they check what the kernels take, allocate the outputs, and
-launch on PyTorch's current stream — or raise; nothing falls back.
-``int8_quantize_fwd.launches`` and ``int8_dequantize_fwd.launches``
-count launches, so a run can show that its compression went through the
-kernels.  Element counts cross the C interface as 64-bit integers: one
+launch on PyTorch's current stream — or raise; nothing falls back.  The
+kernels have no backward, so on CUDA they also raise when grad mode is on
+and an input requires grad.  ``int8_quantize_fwd.launches`` and
+``int8_dequantize_fwd.launches`` count launches, so a run can show that
+its compression went through the kernels.  Element counts cross the C interface as 64-bit integers: one
 launch codes a gradient of more than 2^31 elements.
 """
 from __future__ import annotations
@@ -17,7 +18,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.ref import int8_dequantize_ref, int8_quantize_ref
 
 DEFAULT_BLOCK = 256
@@ -50,6 +51,7 @@ def int8_quantize_fwd(x: torch.Tensor, *, block: int = DEFAULT_BLOCK):
         return int8_quantize_ref(x, block)
     if x.device.type != "cuda":
         raise ValueError(f"int8_quantize_fwd: unsupported device {x.device}")
+    refuse_autograd("int8_quantize", x)
     if x.dtype not in _DTYPES:
         raise TypeError(f"int8_quantize kernel takes float32 / bfloat16, "
                         f"not {x.dtype}")
@@ -92,6 +94,7 @@ def int8_dequantize_fwd(q: torch.Tensor, scales: torch.Tensor, shape,
         return int8_dequantize_ref(q, scales, shape, dtype)
     if q.device.type != "cuda":
         raise ValueError(f"int8_dequantize_fwd: unsupported device {q.device}")
+    refuse_autograd("int8_dequantize", scales)
     if q.dtype != torch.int8 or scales.dtype != torch.float32:
         raise TypeError(f"int8_dequantize kernel takes int8 codes and float32 "
                         f"scales, not {q.dtype} / {scales.dtype}")

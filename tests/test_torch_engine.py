@@ -268,7 +268,7 @@ print(" ".join(mods))
                           text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
     mods = set(proc.stdout.split())
-    assert len(mods) >= 54
+    assert len(mods) >= 79
     assert {"repro_torch.models.ssm", "repro_torch.kernels.rwkv_scan",
             "repro_torch.configs.rwkv6_7b",
             "repro_torch.kernels.flash_attention", "repro_torch.tree",
@@ -286,7 +286,16 @@ print(" ".join(mods))
             "repro_torch.launch.dryrun", "repro_torch.launch.specs",
             "repro_torch.launch.roofline", "repro_torch.launch.mesh",
             "repro_torch.launch.shardings", "repro_torch.models.hints",
-            "repro_torch.models.moe_ep"} <= mods
+            "repro_torch.models.moe_ep", "repro_torch.analysis",
+            "repro_torch.analysis.__main__", "repro_torch.analysis.core",
+            "repro_torch.analysis.baseline", "repro_torch.analysis.reporters",
+            "repro_torch.analysis.rules.alloc001",
+            "repro_torch.analysis.rules.det001",
+            "repro_torch.analysis.rules.fbk001",
+            "repro_torch.analysis.rules.grad001",
+            "repro_torch.analysis.rules.hot001",
+            "repro_torch.analysis.rules.krn001",
+            "repro_torch.analysis.rules.sync001"} <= mods
 
 
 def test_examples_import_without_jax_or_repro():

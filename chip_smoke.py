@@ -11,7 +11,11 @@ failure:
    print each instance's registers, static shared memory, spilled bytes
    and stack, the compiler's warnings and advisories, the dynamic shared
    memory of the flash and paged-decode blocks, and whether the flash
-   library's SASS holds HGMMA (tensor-core) instructions (informational);
+   library's SASS holds HGMMA (tensor-core) instructions; fail if an
+   instance of ``flash_fwd_tc_kernel`` or ``paged_wide_kernel`` spills or
+   ptxas serializes its wgmma (advisory C7512), or if their libraries'
+   ptxas report (kept beside a library built by an earlier process) is
+   missing; the rest informational;
 2. hold the paged-decode kernel against its plain PyTorch version and
    against the plain mirror of its split-K algorithm on the card over
    the sweep of ``tests/test_paged_kernel.py`` plus the decode shapes of
@@ -20,8 +24,9 @@ failure:
    order than the plain version's), and check that -1 table columns
    (2 and 9 appended, inside a split and as whole empty splits) are
    exactly neutral and idle slots exactly zero.  2b holds the head-tiled
-   instances at deepseek-v3's MLA shape; 2c the split instance at
-   gemma3-12b's (16 q / 8 kv heads of 256): a wrapped 64-column ring
+   instances at deepseek-v3's MLA shape; 2c the wide-head instance (bf16)
+   and the split instance (f32) at gemma3-12b's (16 q / 8 kv heads of
+   256), each checked to have run: a wrapped 64-column ring
    with window 1024 whose oldest positions lie below the window, and a
    128-column table, bf16 and f32, against the plain version and the
    split-K mirror, -1 columns neutral bit for bit, idle slots zero.  2d
@@ -111,7 +116,8 @@ failure:
    chunk 128): the 16 requests of phase 3 and two greedy ones of 1,500
    tokens whose rings wrap.  Every decode tick's 48 attentions go
    through the paged-decode kernel (launches == decode ticks x 48, of
-   them with a window == decode ticks x 40), no page is shared, the ring pool is 512 pages and both allocators end
+   them with a window == decode ticks x 40, all by the wide-head
+   instance), no page is shared, the ring pool is 512 pages and both allocators end
    all free; on a served state with a wrapped ring, one decode tick
    through the kernel vs the plain path layer by layer in bf16 (within
    2e-2 of each layer's scale) and for the whole model in float32
@@ -298,13 +304,15 @@ def fail(msg: str) -> None:
 def ptxas_summary(log: str):
     """(kernel instance, registers, static shared bytes, spilled bytes,
     stack frame bytes) from nvcc -Xptxas=-v output; the instance is the
-    kernel's name and its mangled template arguments."""
+    kernel's name and its mangled template arguments (the name alone for
+    a kernel that is no template)."""
     out, name, spill, stack = [], None, 0, 0
     for line in log.splitlines():
-        m = re.search(r"entry function '\w*?\d+([a-z_]+_kernel)I(\w*?)EEv",
-                      line)
+        m = re.search(r"entry function '\w*?\d+([a-z_]+_kernel)"
+                      r"(?:I(\w*?)EEv|E)", line)
         if m:
-            name, spill = f"{m.group(1)}<{m.group(2)}>", 0
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            spill = 0
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
                       line)
         if m:
@@ -600,6 +608,8 @@ def reset_counts(kernels) -> None:
         k.launches = 0
         if hasattr(k, "window_launches"):
             k.window_launches = 0
+        if hasattr(k, "instance_launches"):
+            k.instance_launches = dict.fromkeys(k.instance_launches, 0)
 
 
 def serving_times(rec, wall):
@@ -752,15 +762,20 @@ def profile_ticks(eng, n=3, step=None, what="decode ticks"):
         print("profile: the profiler saw no device time (not measured)")
         return {}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    # the paged-decode kernel's instances and merge, whichever ran
+    paged = sum(e.self_device_time_total for e in kernels
+                if "paged_" in e.key) / busy
     print(f"profile of {n} {what}: {wall_us / n / 1e3:.2f} ms/tick "
           f"under the profiler, device busy {busy / n / 1e3:.2f} ms/tick "
           f"({busy / wall_us:.3f} of wall), "
-          f"{sum(e.count for e in kernels) / n:.0f} kernels/tick; top: "
+          f"{sum(e.count for e in kernels) / n:.0f} kernels/tick; paged "
+          f"decode {paged:.3f} of device time; top: "
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / busy:.3f}"
                       for e in top))
     return {"profiled_ms_per_tick": wall_us / n / 1e3,
             "device_busy_ms_per_tick": busy / n / 1e3,
             "device_busy_share": busy / wall_us,
+            "paged_share": paged,
             "kernels_per_tick": sum(e.count for e in kernels) / n}
 
 
@@ -1147,6 +1162,9 @@ def phase_gemma_vs_plain(fwd, ref):
     for dname, dtype in (("bfloat16", torch.bfloat16),
                          ("float32", torch.float32)):
         tol = TOL[dname]
+        # bf16 runs the wide-head instance, float32 the split kernel's GB = 4
+        want = "wide" if dtype == torch.bfloat16 else "split"
+        before = fwd.instance_launches[want]
         cases = [(ring_case(dtype, seed=s), GEMMA_WINDOW) for s in (0, 1)]
         cases += [(global_case(dtype, seed=s), 0) for s in (0, 1)]
         for c, window in cases:
@@ -1160,6 +1178,8 @@ def phase_gemma_vs_plain(fwd, ref):
                                        rtol=tol)
             worst[dname] = max(worst.get(dname, 0.0),
                                (out.float() - exp.float()).abs().max().item())
+        if fwd.instance_launches[want] != before + len(cases):
+            fail(f"{dname}: gemma3's shape did not run the {want} instance")
         c = cases[0][0]
         base = run_kernel(fwd, c, window=GEMMA_WINDOW)
         # the window is doing work: the same ring without it reads the
@@ -1186,8 +1206,8 @@ def phase_gemma_vs_plain(fwd, ref):
                                                               base[0]):
             fail(f"{dname}: an idle gemma3 slot did not output exact zeros")
         torch.cuda.synchronize()
-        print(f"gemma3 shape (B=8, Hq=16, Hkv=8, D=256) kernel vs plain "
-              f"[{dname}]: wrapped 64-column ring with window 1024 "
+        print(f"gemma3 shape (B=8, Hq=16, Hkv=8, D=256) kernel ({want} "
+              f"instance) vs plain [{dname}]: wrapped 64-column ring with window 1024 "
               f"({masked} ring positions below the window) and 128-column "
               f"table, max abs err {worst[dname]:.3e} (tol {tol}; also "
               f"within it of the split-K mirror); -1 columns neutral, idle "
@@ -1223,7 +1243,7 @@ def phase_gemma_kernel_times(fwd, ref):
         call_ms = event_ms(
             lambda i: run_kernel(fwd, cases[i % 4], window=window), 200)
         ms = device_ms(lambda i: run_kernel(fwd, cases[i % 4], window=window),
-                       200, "paged_split_kernel")
+                       200, ("paged_split_kernel", "paged_wide_kernel"))
         plain_ms = event_ms(
             lambda i: run_kernel(ref, cases[i % 4], window=window), 5)
 
@@ -2369,6 +2389,7 @@ def phase_serve_gemma(paged_fwd, kernels):
     wall = time.time() - t0
     launches = paged_fwd.launches
     ring = paged_fwd.window_launches
+    wide = paged_fwd.instance_launches["wide"]
     n_swa = (cfg.n_layers // len(cfg.period)
              * sum(spec.mixer == SWA for spec in cfg.period))
     st = eng.stats
@@ -2384,6 +2405,9 @@ def phase_serve_gemma(paged_fwd, kernels):
     if ring != st["decode_calls"] * n_swa:
         fail(f"windowed paged_attention launches {ring} != decode_calls "
              f"{st['decode_calls']} x {n_swa} sliding-window layers")
+    if wide != launches:
+        fail(f"only {wide} of gemma3's {launches} paged_attention launches "
+             f"ran the wide-head instance")
     if (eng._alloc.n_free, eng._alloc_swa.n_free) != (
             eng.num_blocks, eng.num_blocks_swa) or eng._alloc.reserved \
             or eng._alloc_swa.reserved:
@@ -2392,8 +2416,9 @@ def phase_serve_gemma(paged_fwd, kernels):
           f"{st['prefill_calls']} prefill calls, {st['decode_calls']} decode "
           f"ticks, {st['shared_pages']} shared pages; paged_attention "
           f"launches {launches} = {st['decode_calls']} x {cfg.n_layers}, "
-          f"{ring} of them windowed = {st['decode_calls']} x {n_swa}; both "
-          f"allocators all free at the end")
+          f"{ring} of them windowed = {st['decode_calls']} x {n_swa}, all "
+          f"{wide} by the wide-head instance; both allocators all free at "
+          f"the end")
     timing = serving_times(rec, wall)
 
     # a served state: 8 new requests, one of 1,300 tokens (its ring has
@@ -4028,21 +4053,48 @@ def phase_dryrun_vs_real(paged_fwd, card: str):
             "tick_event_ms": tick_ms, "tick_device": dev_ms}
 
 
+# kernels whose instances must compile with no serialized wgmma (ptxas
+# advisory C7512) and no spilled bytes, by the source that holds them:
+# phase 1 fails otherwise
+STRICT_KERNELS = {"flash_fwd_tc_kernel": "flash_attention",
+                  "paged_wide_kernel": "paged_attention"}
+
+
 def print_build_report(build, libs) -> None:
     """Registers, static shared memory and spills of every kernel instance
     (ptxas), the dynamic shared memory of the redesigned kernels' blocks,
     the compiler's warnings, and whether the flash library's SASS holds
-    tensor-core instructions (informational, not a gate)."""
+    tensor-core instructions; fails when an instance of a kernel in
+    ``STRICT_KERNELS`` spills or has its wgmma serialized (C7512), or its
+    library's ptxas report is missing (the log kept beside a library
+    built by an earlier process is read too); the rest is
+    informational."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_attention as PA
-    for name, log in sorted(build.logs.items()):
+    strict = tuple(STRICT_KERNELS)
+    logs = {name: build.build_log(name) for name in sorted(libs)}
+    bad = [f"no ptxas report for {name}'s library (delete build/repro_torch "
+           f"to rebuild it)" for name in sorted(set(STRICT_KERNELS.values()))
+           if logs.get(name) is None]
+    for name, log in logs.items():
+        if log is None:
+            print(f"phase 1: no ptxas report for {name} (built without its "
+                  f"log; delete build/repro_torch to check it)")
+            continue
+        insts = ptxas_summary(log)
         print(f"ptxas {name}: " + "; ".join(
             f"{inst} {regs} regs {smem} B static smem {spill} B spilled "
-            f"{stack} B stack" for inst, regs, smem, spill, stack
-            in ptxas_summary(log)))
+            f"{stack} B stack" for inst, regs, smem, spill, stack in insts))
+        bad += [f"{inst} spills {spill} B" for inst, _, _, spill, _ in insts
+                if spill and inst.startswith(strict)]
+        bad += [f"{k} has no instance in {name}'s ptxas report"
+                for k, src in STRICT_KERNELS.items() if src == name
+                and not any(inst.startswith(k) for inst, *_ in insts)]
         for line in log.splitlines():
             if "warning" in line.lower() or "(C7" in line:
                 print(f"nvcc {name}: {line.strip()}")
+            if "(C7512)" in line and any(k in line for k in strict):
+                bad.append(line.strip())
     for D in (64, 128, 256):
         inst = FA.instance(torch.bfloat16, D)
         print(f"flash_attention bf16 D={D}: tensor cores "
@@ -4058,18 +4110,23 @@ def print_build_report(build, libs) -> None:
           f"CUDA-core instance ({PA.TILE_HEADS} heads) "
           f"{PA.smem_bytes('tiled', 128, 512, 512, 64, 16, 2, True)} / "
           f"{PA.smem_bytes('tiled', 128, 512, 512, 64, 16, 4, True)} B in "
-          f"bf16 / f32; at gemma3's G = 2, D = Dv = 256: split instance "
-          f"{PA.smem_bytes('split', 2, 256, 256, 0, 16, 2)} / "
-          f"{PA.smem_bytes('split', 2, 256, 256, 0, 16, 4)} B in bf16 / f32")
+          f"bf16 / f32; at gemma3's G = 2, D = Dv = 256: wide-head instance "
+          f"{PA.smem_bytes('wide', 2, 256, 256, 0, 16, 2)} B in bf16, split "
+          f"instance {PA.smem_bytes('split', 2, 256, 256, 0, 16, 4)} B in "
+          f"f32")
     for name in ("rwkv_scan", "mamba_scan"):   # PERF.md names each spill
         spills = [f"{inst} {spill} B" for inst, _, _, spill, _
-                  in ptxas_summary(build.logs.get(name, "")) if spill]
+                  in ptxas_summary(logs.get(name) or "") if spill]
         print(f"{name} instances that spill: "
               + (", ".join(spills) if spills else "none"))
     counts = sass_mma_count(libs["flash_attention"])
     print("flash_attention SASS: " + (
         "not checked (no cuobjdump)" if counts is None else
         f"{counts['HGMMA']} HGMMA, {counts['HMMA']} HMMA instructions"))
+    if bad:
+        fail("phase 1: " + "; ".join(bad))
+    print(f"phase 1: no instance of {', '.join(strict)} spills or "
+          f"serializes its wgmma")
 
 
 # ---------------------------------------------------------------------------
@@ -4401,8 +4458,8 @@ def phase_checker(card: str) -> dict:
                      f"csrc/{decl.source}:{decl.line} declares "
                      f"{list(decl.param_kinds)} -> {decl.ret_kind}")
             checked.append(fname)
-    if len(checked) != 16:
-        fail(f"18b checked {len(checked)} exports, want 16: {checked}")
+    if len(checked) != 17:
+        fail(f"18b checked {len(checked)} exports, want 17: {checked}")
     print(f"18b kernel interfaces: {len(checked)} exports of "
           f"{len(wrappers)} libraries bound by their wrappers, present in "
           f"the built libraries, argtypes and restype equal to csrc's "

@@ -45,7 +45,7 @@ def main() -> int:
     print("ptxas paged_attention: " + "; ".join(
         f"{inst} {regs} regs {spill} B spilled"
         for inst, regs, _, spill, _ in cs.ptxas_summary(
-            build.logs.get("paged_attention", ""))
+            build.build_log("paged_attention") or "")
         if "split_kernel" not in inst))
     fwd, ref = paged_attention_fwd, paged_attention_ref
     out = {"errors": cs.phase_mla_vs_plain(fwd, ref),

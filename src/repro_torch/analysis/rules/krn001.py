@@ -466,7 +466,7 @@ class Krn001(Rule):
     title = "ctypes binding disagrees with the kernel's extern \"C\" declaration"
     motivation = ("every kernel of the port is bound twice — its extern "
                   "\"C\" declaration in csrc/*.cu and the argtypes list "
-                  "arithmetic in its wrapper (16 exports over 5 sources); "
+                  "arithmetic in its wrapper (17 exports over 5 sources); "
                   "the CPU tests run the plain versions, so a wrong count "
                   "or width corrupts memory on the card only")
 

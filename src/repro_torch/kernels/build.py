@@ -5,7 +5,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 with a plain C interface, under ``build/repro_torch/`` at the root of the
 checkout, and loaded with ``ctypes``.  The library's file name carries a
 hash of its source and the flags, so an edited source is rebuilt and a
-stale library is never loaded.  Builds happen at first use (never at
+stale library is never loaded; the compiler's output is kept beside it
+(same name, ``.log``), so ptxas's report of a library built by an earlier
+process can still be read (``build_log``).  Builds happen at first use (never at
 import: the CPU tests import every module and have no ``nvcc``), and
 ``build_all`` starts one ``nvcc`` per source, all at once.
 """
@@ -76,7 +78,22 @@ def _finish(name: str, proc: Optional[subprocess.Popen],
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-    os.replace(tmp, library_path(name))   # atomic: no reader sees half a file
+    # the log first, so every library in place has its log beside it
+    out = library_path(name)
+    tmp_log = tmp.with_suffix(".log")
+    tmp_log.write_text(log)
+    os.replace(tmp_log, out.with_suffix(".log"))
+    os.replace(tmp, out)                  # atomic: no reader sees half a file
+
+
+def build_log(name: str) -> Optional[str]:
+    """The compiler's output for the current library of
+    ``csrc/<name>.cu``, whichever process built it; None when that
+    library has not been built or was built without its log."""
+    if name in logs:
+        return logs[name]
+    path = library_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else None
 
 
 def build_all() -> Dict[str, Path]:

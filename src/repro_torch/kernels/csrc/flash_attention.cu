@@ -16,7 +16,9 @@
 // Bound on this card.  At the training shape of qwen3-8b (B = 2, Hq = 32,
 // Hkv = 8, S = T = 4096, D = 128, causal) the function needs 275 GFLOP (two
 // products over 537 M causal pairs) against 169 MB of traffic, so it is bound
-// by operations: 278 us at the bf16 tensor-core peak.
+// by operations: 278 us at the bf16 tensor-core peak.  gemma3-12b's training
+// shapes (Hq = 16, Hkv = 8, D = 256) need the same 275 GFLOP causal (278 us)
+// and 120 GFLOP with its 1,024-key window (122 us).
 //
 // Two instances, chosen by shape and layout alone in the C entry point:
 //
@@ -24,25 +26,32 @@
 //    port's models): the tensor-core instance `flash_fwd_tc_kernel`, with D
 //    padded with zeros to DP = 64 (D <= 64), 128 (D <= 128) or 256 (D <= 256).
 //    * Grid: one block per (b, q head, 128-row q tile), the longest causal
-//      walks first.  288 threads: warpgroups 0 and 1 are consumers and own
-//      64 q rows each; warp 8 is the producer (one thread issues every
-//      copy).  A thread gets at most 168 registers (the SM's registers are
-//      split over 4 sub-partitions, and 9 warps put 3 on one);
-//      `setmaxnreg` from a producer warpgroup did not raise ptxas's budget
-//      (a variant without it compiled to the same spills), so the tiles
-//      are sized to fit 168.
+//      walks first.  Warpgroups 0 and 1 are consumers and own 64 q rows
+//      each.  At DP <= 128 the block has 288 threads, warp 8 the producer
+//      (one thread issues every copy), and a thread gets at most 168
+//      registers (9 warps put 3 on each of the SM's 4 sub-partitions).  At
+//      DP = 256 the consumer's 64 x 256 f32 accumulator alone takes 128 of
+//      those, so that instance has 384 threads: warpgroup 2 is the producer
+//      and hands its registers to the consumers with `setmaxnreg` (dec to
+//      40, inc to 232: 128 x 40 + 256 x 232 = 64,512 of 65,536), in
+//      warpgroup-uniform branches that never reconverge.  ptxas gives the
+//      consumers' code the raised budget only if no loop there holds a
+//      `trap` (with one, an earlier single producer warp and a first build
+//      of this instance alike compiled to 168 registers, spills and
+//      serialized wgmma, ptxas advisory C7512), so this instance's
+//      mbarrier waits give up after 2^32 cycles and mark the thread
+//      (mbar_wait_bounded), and a marked thread traps once its loop is
+//      over: a stuck wait is still a launch error, never a wrong result.
 //    * Copies: TMA, from three 3-D tensor maps (D, rows, batch x heads) built
 //      on the host in the entry point (`cuTensorMapEncodeTiled` reached
 //      through `cudaGetDriverEntryPoint`, so nothing new is linked).  A box
 //      is 64 columns (128 bytes) wide with 128-byte swizzle, the layout the
 //      wgmma descriptors name; columns >= D and rows >= S or T lie outside
 //      the tensor and arrive as zeros.  Q is loaded once; K and V tiles of
-//      BK = 64 rows (32 at DP = 256: a consumer thread's accumulators, S
-//      and P's two parts must fit the 168 registers the launch bound
-//      leaves, or ptxas serializes the wgmma pipeline) go through a
-//      2-stage ring with full / empty mbarriers for K and for V apart, so
-//      a K slot is refilled as soon as Q.K^T has read it.
-//    * Q.K^T: `wgmma.mma_async` m64nBKk16, Q and K from shared memory (both
+//      BK = 64 rows go through a 2-stage ring with full / empty mbarriers
+//      for K and for V apart, so a K slot is refilled as soon as Q.K^T has
+//      read it.
+//    * Q.K^T: `wgmma.mma_async` m64n64k16, Q and K from shared memory (both
 //      K-major), f32 accumulators in registers.  The scores are exact f32
 //      sums of exact bf16 products, so lse keeps its 1e-4.
 //    * Softmax on those registers, with the plain version's arithmetic:
@@ -53,7 +62,8 @@
 //      by index, and only on tiles that cross the diagonal, the window's
 //      edge or T; tiles wholly above the diagonal or behind the window are
 //      never loaded (the TPU kernel walks them, but a fully masked tile
-//      adds exactly nothing there).
+//      adds exactly nothing there).  The softmax of tile i runs while the
+//      tensor cores do P.V of tile i - 1.
 //    * P goes to the tensor cores as two bf16 parts, hi = bf16(P) and
 //      lo = bf16(P - hi), in registers, where the accumulator layout of
 //      Q.K^T is already the A-operand layout of the next product:
@@ -61,13 +71,27 @@
 //      from shared memory (MN-major, transposed by the descriptor).  P
 //      never touches shared memory.  With P rounded once to bf16 (each term
 //      moved by up to 2^-9) the output stayed inside its bf16 tolerance, but
-//      qwen3-8b's step-0 gradients through 8 layers moved by 2.036e-2
-//      against the plain path (tolerance 2e-2); hi + lo keeps about 16 bits
-//      of P for half again the tensor-core work of the two products.
+//      step 0's gradients moved past their tolerance of 2e-2 against the
+//      plain path: qwen3-8b's through 8 layers by 2.036e-2, gemma3-12b's
+//      through 6 layers by 2.108e-2 to 2.124e-2 on seeds 0-3 (hi + lo:
+//      1.716e-2 to 1.725e-2; scripts/d256_times.py --step0, an H100 80GB
+//      HBM3 at 700 W).  hi + lo keeps about 16 bits of P for half again the
+//      tensor-core work of the two products.
 //    * No atomics: every output element is written by one thread, the sums
 //      run in a fixed order, and the result is the same in every run.
-//    Shared memory: Q 16 / 32 / 64 KB, ring 32 / 64 / 64 KB (DP 64 / 128 /
+//    Shared memory: Q 16 / 32 / 64 KB, ring 32 / 64 / 128 KB (DP 64 / 128 /
 //    256), set above 48 KB with `cudaFuncSetAttribute`.
+//    At gemma3's shapes the DP = 256 instance reads 763.6-776.1 us causal
+//    and 394.8-395.6 us with the 1,024-key window (the 288-thread, 32-key
+//    instance it replaced: 1512.8-1521.5 and 746.2-747.1; cuDNN's fused
+//    SDPA 449.4-453.0 causal; scripts/d256_times.py on an H100 80GB HBM3
+//    at 700 W).  hi + lo makes its tensor work 1.5x the bound's: 417 us
+//    causal, 0.54 of the time it takes.  Taking the P.V products, the
+//    Q.K^T products or the softmax out of a copy each saves about a fifth,
+//    and taking out the K / V loads nothing (scripts/d256_times.py
+//    --ablate): no one phase bounds it; each warpgroup's Q.K^T, softmax, P
+//    rounding and P.V of a tile follow one another, and two warpgroups an
+//    SM do not hide that chain.  P rounded once would read 594.8-602.5 us.
 //
 // 2. float32, or bf16 with D % 8 != 0 or a misaligned pointer: the CUDA-core
 //    instance `flash_fwd_kernel` (the first version of this kernel).
@@ -103,6 +127,20 @@ namespace {
 constexpr int TC_BQ = 128;       // q rows per block: two consumer warpgroups
 constexpr int TC_THREADS = 288;  // 2 consumer warpgroups + 1 producer warp
 constexpr int TC_STAGES = 2;     // K / V ring depth
+// DP = 256: 2 consumer warpgroups + 1 producer warpgroup, whose registers
+// `setmaxnreg` hands to the consumers: 128 x 40 + 256 x 232 = 64,512 of the
+// SM's 65,536 (the launch bound gives each of the 384 threads 168)
+constexpr int TC_THREADS_WS = 384;
+constexpr int TC_REGS_PRODUCER = 40;
+constexpr int TC_REGS_CONSUMER = 232;
+
+// The block of an instance: its threads, and whether its producer is a
+// whole warpgroup that moves its registers to the consumers
+template <int DP>
+struct TcShape {
+  static constexpr bool WS = DP == 256;
+  static constexpr int THREADS = WS ? TC_THREADS_WS : TC_THREADS;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -141,6 +179,29 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "memory");
     if (!done && clock64() - t0 > (1ll << 33)) asm volatile("trap;");
   } while (!done);
+}
+
+// The same wait for the DP = 256 instance: a trap inside a consumer's loop
+// keeps ptxas from giving that code the registers `setmaxnreg.inc` raised
+// (it then compiles to the 168 of the launch bound and serializes the
+// wgmma), so a wait that outlasts 2^32 cycles gives up instead and marks
+// the thread `dead`, whose later waits return at once.  A marked thread
+// traps after its loop (a trap outside the loop keeps the budget), so the
+// launch fails as mbar_wait's would and no result is written.
+__device__ __forceinline__ void mbar_wait_bounded(uint32_t bar,
+                                                  uint32_t parity,
+                                                  bool& dead) {
+  uint32_t done;
+  const long long t0 = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done && !dead && !(dead = clock64() - t0 > (1ll << 32)));
 }
 
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
@@ -193,24 +254,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
-
-// d (64 x 32, f32) = [d +] a (64 x 16, smem) . b (32 x 16, smem)^T
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
 
 // d (64 x 64, f32) = [d +] a (64 x 16, smem) . b (64 x 16, smem)^T
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
@@ -359,9 +402,8 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int accumulate) {
-  static_assert(N == 32 || N == 64, "the kv tiles are 32 or 64 keys");
-  if constexpr (N == 32) wgmma_ss_n32(d, da, db, accumulate);
-  else wgmma_ss_n64(d, da, db, accumulate);
+  static_assert(N == 64, "the kv tiles are 64 keys");
+  wgmma_ss_n64(d, da, db, accumulate);
 }
 
 template <int N>
@@ -389,7 +431,7 @@ struct TcLayout {
 };
 
 template <int DP, int BK>
-__global__ void __launch_bounds__(TC_THREADS, 1)
+__global__ void __launch_bounds__(TcShape<DP>::THREADS, 1)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v,
@@ -398,6 +440,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
                         int T_, int D, float scale, int causal,
                         int window) {
   using L = TcLayout<DP, BK>;
+  constexpr bool WS = TcShape<DP>::WS;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sbase = (raw + 1023) & ~1023u;
@@ -437,9 +480,20 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
+  bool dead = false;                  // a bounded wait gave up (WS only)
+  const auto wait = [&](uint32_t bar, uint32_t parity) {
+    if constexpr (WS) mbar_wait_bounded(bar, parity, dead);
+    else mbar_wait(bar, parity);
+  };
+  int wg = threadIdx.x / 128;
+  // warp-uniform for the compiler: setmaxnreg sits in warpgroup-uniform
+  // branches that never reconverge
+  if constexpr (WS) wg = __shfl_sync(0xffffffffu, wg, 0);
   if (wg == 2) {
     // ---- producer: one thread of warp 8 --------------------------------
+    if constexpr (WS)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          TC_REGS_PRODUCER));
     if (threadIdx.x == 256) {
       mbar_expect_tx(bar_q, L::Q_BYTES);
       for (int c = 0; c < L::NB; ++c)
@@ -449,20 +503,24 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
         const uint32_t free_parity = ((it / TC_STAGES) & 1) ^ 1;
         const int kv0 = (t_end - 1 - it) * BK;
         const uint32_t kb = bar_k + 8 * st, vb = bar_v + 8 * st;
-        mbar_wait(bar_k_free + 8 * st, free_parity);
+        wait(bar_k_free + 8 * st, free_parity);
         mbar_expect_tx(kb, L::TILE_BYTES);
         for (int c = 0; c < L::NB; ++c)
           tma_load_3d(sk + st * L::TILE_BYTES + c * BK * 128, &tm_k, kb,
                       c * 64, kv0, kvh);
-        mbar_wait(bar_v_free + 8 * st, free_parity);
+        wait(bar_v_free + 8 * st, free_parity);
         mbar_expect_tx(vb, L::TILE_BYTES);
         for (int c = 0; c < L::NB; ++c)
           tma_load_3d(sv + st * L::TILE_BYTES + c * BK * 128, &tm_v, vb,
                       c * 64, kv0, kvh);
       }
     }
+    if (dead) asm volatile("trap;");              // a wait gave up
   } else {
     // ---- consumers -----------------------------------------------------
+    if constexpr (WS)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+          TC_REGS_CONSUMER));
     const int cw = wg;                            // rows q0 + 64 cw ..
     const int t = threadIdx.x - 128 * wg;
     const int warp = t >> 5, lane = t & 31;
@@ -581,14 +639,14 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
       }
     };
 
-    mbar_wait(bar_q, 0);
+    wait(bar_q, 0);
     // The softmax of tile it runs while the tensor cores do P.V of tile
     // it - 1.  Per step: issue Q.K^T (it); rescale acc to tile it - 1's
     // max; issue P.V (it - 1); wait for the first, softmax it, wait for the
     // second, round P.  So acc = acc x alpha_{it-1} + P_{it-1} V_{it-1}.
     if (n_tiles > 0) {
       float alpha0, alpha1;
-      mbar_wait(bar_k, 0);
+      wait(bar_k, 0);
       fence_regs(s);
       wgmma_fence();
       issue_qk(0);
@@ -600,14 +658,14 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
       to_p();
       for (int it = 1; it < n_tiles; ++it) {
         const int st = it % TC_STAGES, prev = (it - 1) % TC_STAGES;
-        mbar_wait(bar_k + 8 * st, (it / TC_STAGES) & 1);
+        wait(bar_k + 8 * st, (it / TC_STAGES) & 1);
         fence_regs(s);
         wgmma_fence();
         issue_qk(st);
         wgmma_commit();
         fence_regs(s);
         rescale(alpha0, alpha1);
-        mbar_wait(bar_v + 8 * prev, ((it - 1) / TC_STAGES) & 1);
+        wait(bar_v + 8 * prev, ((it - 1) / TC_STAGES) & 1);
         fence_regs(acc);
         fence_regs(p);
         fence_regs(pl);
@@ -628,7 +686,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
       }
       const int last = (n_tiles - 1) % TC_STAGES;
       rescale(alpha0, alpha1);
-      mbar_wait(bar_v + 8 * last, ((n_tiles - 1) / TC_STAGES) & 1);
+      wait(bar_v + 8 * last, ((n_tiles - 1) / TC_STAGES) & 1);
       fence_regs(acc);
       fence_regs(p);
       fence_regs(pl);
@@ -640,6 +698,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
       mbar_arrive(bar_v_free + 8 * last);
     }
 
+    if (dead) asm volatile("trap;");              // a wait gave up
     // finalize: o = acc / max(l, 1e-30); lse = m + log(max(l, 1e-30))
     l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
     l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
@@ -718,7 +777,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
       smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + TC_BQ - 1) / TC_BQ, B * Hq);
-  flash_fwd_tc_kernel<DP, BK><<<grid, TC_THREADS, smem, stream>>>(
+  flash_fwd_tc_kernel<DP, BK><<<grid, TcShape<DP>::THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Hq, Hkv, S, T_, D,
       scale, causal, window);
   return (int)cudaGetLastError();
@@ -1022,7 +1081,7 @@ long long flash_attention_smem_bytes(int dtype, int D) {
   if (flash_attention_tensor_cores(dtype, D))
     return D <= 64 ? TcLayout<64, 64>::BYTES
            : D <= 128 ? TcLayout<128, 64>::BYTES
-                      : TcLayout<256, 32>::BYTES;
+                      : TcLayout<256, 64>::BYTES;
   return D <= 64 ? (long long)Layout<64>::BYTES
          : D <= 128 ? (long long)Layout<128>::BYTES
                     : (long long)Layout<256>::BYTES;
@@ -1048,7 +1107,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     if (D <= 128)
       return launch_tc<128, 64>(q, k, v, o, lse_f, B, Hq, Hkv, S, T, D,
                                 scale, causal, window, st);
-    return launch_tc<256, 32>(q, k, v, o, lse_f, B, Hq, Hkv, S, T, D, scale,
+    return launch_tc<256, 64>(q, k, v, o, lse_f, B, Hq, Hkv, S, T, D, scale,
                               causal, window, st);
   }
   if (dtype == 0)

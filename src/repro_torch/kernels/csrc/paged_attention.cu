@@ -61,6 +61,49 @@
 // counters are shared by the launches on one device and stream, which
 // run one after another.
 //
+// gemma3-12b's decode (G = 2 query heads over each of 8 kv heads of D =
+// Dv = 256, 16-row pages, bf16) takes the wide-head instance
+// `paged_wide_kernel`, built for that shape alone: through the instance
+// above it ran as GB = 4 (half the q rows zeros), copied the split's 64 KB
+// of K and V, waited, and only then computed, one thread scoring a whole
+// 512-byte K row for half the heads; 58-60 / 113-114 us at the ring /
+// table shape against SDPA's 39 / 63 (scripts/d256_times.py on an H100
+// 80GB HBM3 at 700 W).  Its bound is the bytes of K and V, as above: at 2
+// flops a byte for G = 2 the CUDA cores idle at any rate HBM can feed.
+// * The split kernel's splits, partial format, prologue (idle slots, -1
+//   columns), counter and merge, as the shared functions split_blocks,
+//   split_idle, count_live, last_split and merge_splits, on a grid
+//   (Hkv x n_splits, B) whose blocks of one slot run together, so most
+//   merges overlap other slots' loads; the exact G (q rows held in
+//   registers as f32, no padded rows).
+// * A warp per K row: warp w takes rows w, w + 4, w + 8, w + 12 of each of
+//   the split's pages, lane u the row's 16-byte unit u (one unit a lane),
+//   dotted with the G query rows; the 4 x G partial sums are summed over
+//   the warp by a transposing xor fold (17 shuffles where a butterfly per
+//   value takes 40).
+// * A ring of WIDE_STAGES = 2 pages a warp: lane u copies its units of
+//   the next page by cp.async.cg while the page at hand is scored; each
+//   lane reads back only what it copied.  33.6 KB of shared memory a
+//   block lets 6 blocks share an SM (the 4-page staging of a first
+//   version, 66 KB, allowed 3, and its blocks idled HBM while computing).
+// * An online softmax per warp over its rows: lane k computes p of (row
+//   k / G, head k % G) and shuffles hand every p to every lane; l and acc
+//   rescale only when a head's max moved (alpha = 1 exactly otherwise).
+//   Then P.V with lane u owning V columns 8 u .. 8 u + 7 of every head.
+//   Masked rows add nothing; -1 columns' pages are never copied.
+// * The 4 warps' (m, l, acc) combine in warp order into the split's
+//   partial; the last live split merges the partials as above, 16 staged
+//   a round over the ring.
+// So -1 columns stay neutral bit for bit, idle slots write exact zeros,
+// and float32 and every other shape keep the GB instance above.
+// At gemma3's shapes it reads 34.85-34.86 us a full ring and 60.02-60.06
+// a full table (the GB = 4 instance 58.96-59.19 and 112.98-113.01; SDPA
+// on gathered K/V 38.47-39.34 and 62.68-62.76; bounds 20.08 and 40.12;
+// scripts/d256_times.py on an H100 80GB HBM3 at 700 W).  Without the
+// arithmetic the copies alone read 31.68 / 58.09 us, and the merge adds
+// 4.6 / 8.3 us at the launch's tail (scripts/d256_times.py --ablate): the
+// 512-byte rows of a page, 4 KB apart, do not stream at HBM's rate.
+//
 // MLA's absorbed decode (DeepSeek-V3: Hkv = 1, G = 128 query heads over one
 // latent head, D = Dv = kv_lora_rank = 512, De = qk_rope_dim = 64, the
 // latent pool passed as both K and V) is another shape of the same
@@ -285,6 +328,209 @@ __device__ __forceinline__ int list_live(const int32_t* row, int n_cols,
   return __popc(mask);
 }
 
+// The blocks of split `split`'s columns of a table row (-1 for a -1
+// column, one past the row or outside the pool); whether any is live
+__device__ __forceinline__ bool split_blocks(const int32_t* trow, int n_cols,
+                                             int num_blocks, int split,
+                                             int (&blk)[PAGES_PER_SPLIT]) {
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < PAGES_PER_SPLIT; ++j) {
+    const int c = split * PAGES_PER_SPLIT + j;
+    const int x = c < n_cols ? trow[c] : -1;
+    blk[j] = (x < 0 || x >= num_blocks) ? -1 : x;
+    any = any || blk[j] >= 0;
+  }
+  return any;
+}
+
+// Whether a split's block has nothing to score, once it has written what
+// it owes: an idle slot (q_pos < 0) masks every key, and its split 0
+// writes exact zeros; a split with no live column adds nothing and takes
+// no part in the merge, and a row with no live column at all outputs exact
+// zeros (0 / 1e-30) from its split 0.  o: the slot's n_out = G x Dv outputs
+template <typename T>
+__device__ __forceinline__ bool split_idle(int qp, bool any, int split,
+                                           int n_splits, const int32_t* trow,
+                                           int n_cols, int num_blocks, T* o,
+                                           int n_out, int* lst, int* flag) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (qp < 0) {
+    if (split == 0)
+      for (int i = tid; i < n_out; i += blockDim.x) o[i] = from_f32<T>(0.f);
+    return true;
+  }
+  if (!any) {
+    if (split != 0) return true;
+    if (warp == 0) {
+      int n = 0;
+      for (int s0 = 0; s0 < n_splits; s0 += MERGE_CHUNK)
+        n += list_live(trow, n_cols, num_blocks, s0, lst);
+      if (lane == 0) flag[0] = n;
+    }
+    __syncthreads();
+    if (flag[0] == 0)
+      for (int i = tid; i < n_out; i += blockDim.x) o[i] = from_f32<T>(0.f);
+    return true;
+  }
+  return false;
+}
+
+// By warp 0, while the block's copies are in flight: the number of live
+// splits of the row into flag[0] (what the counter counts up to), chunk
+// 0's list into lst and its count into flag[1] (the merge's first chunk)
+__device__ __forceinline__ void count_live(const int32_t* trow, int n_cols,
+                                           int num_blocks, int n_splits,
+                                           int* lst, int* flag) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp == 0) {
+    int n = list_live(trow, n_cols, num_blocks, 0, lst);
+    const int first = n;
+    for (int s0 = MERGE_CHUNK; s0 < n_splits; s0 += MERGE_CHUNK)
+      n += list_live(trow, n_cols, num_blocks, s0, lst + MERGE_CHUNK);
+    if (lane == 0) {
+      flag[0] = n;
+      flag[1] = first;
+    }
+  }
+}
+
+// Whether this block is the last of the row's live splits to finish: the
+// one that merges the partials.  The block's stores are ordered before
+// thread 0's counter update by the barrier, and that update releases them
+// to the device and acquires the other blocks' (one acq_rel atomic, no
+// fence in every thread)
+__device__ __forceinline__ bool last_split(int* counter, int* flag) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int prev;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                 : "=r"(prev)
+                 : "l"(counter)
+                 : "memory");
+    flag[0] = prev == flag[0] - 1;
+  }
+  __syncthreads();
+  return flag[0];
+}
+
+// The merge, by the last split's block, into the slot's G x Dv outputs o.
+// Chunks of MERGE_CHUNK splits, in order; per chunk one round of loads:
+// warp 0 lists its live splits in split order (chunk 0's list is kept
+// from count_live), their acc go to shared memory (`stage`, free by now)
+// by cp.async, stage_n at a time, and their (m_s, l_s) beside them (cm,
+// cl: MERGE_CHUNK x G floats).  Then the running max of each query head
+// (ms) takes the chunk's m_s (rescaling what was summed with alpha =
+// e^(M_old - M), m_al; the new max in mnew), the weights are e^(m_s - M),
+// l (ls) adds l_s x weight in split order, and each thread adds the
+// weighted acc of its K8 output elements (a pass) in split order.  A live split
+// with l_s = 0 (every row masked) has acc_s = 0: it adds exactly 0, as in
+// the plain mirror, which skips it.  With one chunk this is the two-pass
+// merge M = max m_s, sum e^(m_s - M) (...) exactly.  pb: the row's
+// partials; ends by resetting the row's counter.
+template <int K8, typename T>
+__device__ __forceinline__ void merge_splits(
+    const float* pb, size_t part_stride, int G, int Dv, int n_splits,
+    const int32_t* trow, int n_cols, int num_blocks, int* lst, int* flag,
+    float* stage, int stage_n, float* cm, float* cl, float* ms, float* ls,
+    float* m_al, float* mnew, T* o, int* counter) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int PM = G * Dv, PL = G * Dv + G;              // offsets of m and l
+  const bool vec_part = PM % 4 == 0;
+  const int units = vec_part ? PM / 4 : PM;
+  const int n_chunks = (n_splits + MERGE_CHUNK - 1) / MERGE_CHUNK;
+  const int n_first = flag[1];                 // live splits of chunk 0
+  for (int i0 = 0; i0 < G * Dv; i0 += K8 * kThreads) {
+    float a[K8];
+    int gk[K8];
+#pragma unroll
+    for (int kk = 0; kk < K8; ++kk) {
+      const int i = i0 + kk * kThreads + tid;
+      a[kk] = 0.f;
+      gk[kk] = i < G * Dv ? i / Dv : -1;
+    }
+    __syncthreads();
+    if (tid < G) {
+      ms[tid] = kNegInf;
+      if (i0 == 0) ls[tid] = 0.f;
+    }
+    for (int c = 0; c < n_chunks; ++c) {
+      const int* l_ = c > 0 ? lst + MERGE_CHUNK : lst;
+      if (c > 0) {
+        __syncthreads();
+        if (warp == 0) {
+          const int n = list_live(trow, n_cols, num_blocks, c * MERGE_CHUNK,
+                                  lst + MERGE_CHUNK);
+          if (lane == 0) flag[1] = n;
+        }
+      }
+      __syncthreads();
+      const int n = c > 0 ? flag[1] : n_first;
+      for (int j0 = 0; j0 < n; j0 += stage_n) {
+        const int m = min(stage_n, n - j0);
+        if (j0 > 0) __syncthreads();
+        for (int j = 0; j < m; ++j) {
+          const float* src = pb + (size_t)l_[j0 + j] * part_stride;
+          float* dst = stage + (size_t)j * PM;
+          for (int u = tid; u < units; u += kThreads) {
+            if (vec_part)
+              cp_async16(dst + 4 * u, src + 4 * u);
+            else
+              cp_async4(dst + u, src + u);
+          }
+        }
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+        if (j0 == 0)
+          for (int x = tid; x < n * G; x += kThreads) {
+            const float* ps = pb + (size_t)l_[x / G] * part_stride;
+            cm[x] = __ldcg(ps + PM + x % G);
+            cl[x] = __ldcg(ps + PL + x % G);
+          }
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        __syncthreads();
+        if (j0 == 0) {
+          if (tid < G) {
+            float M = ms[tid];
+            for (int j = 0; j < n; ++j) M = fmaxf(M, cm[j * G + tid]);
+            mnew[tid] = M;
+            m_al[tid] = expf(ms[tid] - M);
+          }
+          __syncthreads();
+          for (int x = tid; x < n * G; x += kThreads)
+            cm[x] = expf(cm[x] - mnew[x % G]);
+          __syncthreads();
+          if (tid < G) {
+            float l = ls[tid] * m_al[tid];
+            for (int j = 0; j < n; ++j) l += cl[j * G + tid] * cm[j * G + tid];
+            if (i0 == 0) ls[tid] = l;
+            ms[tid] = mnew[tid];
+          }
+#pragma unroll
+          for (int kk = 0; kk < K8; ++kk)
+            a[kk] *= gk[kk] >= 0 ? m_al[gk[kk]] : 0.f;
+        }
+        for (int j = 0; j < m; ++j) {
+#pragma unroll
+          for (int kk = 0; kk < K8; ++kk) {
+            const bool v = gk[kk] >= 0;
+            const float w = v ? cm[(j0 + j) * G + gk[kk]] : 0.f;
+            const float x =
+                v ? stage[(size_t)j * PM + i0 + kk * kThreads + tid] : 0.f;
+            a[kk] += x * w;
+          }
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < K8; ++kk)
+      if (gk[kk] >= 0)
+        o[i0 + kk * kThreads + tid] =
+            from_f32<T>(a[kk] / fmaxf(ls[gk[kk]], 1e-30f));
+  }
+  if (tid == 0) *counter = 0;
+}
+
 template <typename T, bool VEC, bool SWZ, int GB>
 __global__ void __launch_bounds__(kThreads, 4) paged_split_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
@@ -316,63 +562,27 @@ __global__ void __launch_bounds__(kThreads, 4) paged_split_kernel(
   const int Hq = Hkv * G;
   constexpr int GP = GB;
   const int R = PAGES_PER_SPLIT * page;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const size_t head0 = (size_t)b * Hq + (size_t)h * G;  // first query head row
   T* o = out + head0 * Dv;
   // a split's partial: acc[G][Dv], m[G], l[G], on 16-byte strides
   const size_t part_stride = part_floats(G, Dv);
   const int PM = G * Dv, PL = G * Dv + G;              // offsets of m and l
   float* my_part = part + ((size_t)bh * n_splits + split) * part_stride;
+  const int32_t* trow = table + (size_t)b * n_cols;
 
   // the slot's q_pos and this split's table columns, loaded together
   const int qp = q_pos[b];
   int blk[PAGES_PER_SPLIT];
-  bool any = false;
-#pragma unroll
-  for (int j = 0; j < PAGES_PER_SPLIT; ++j) {
-    const int c = split * PAGES_PER_SPLIT + j;
-    const int x = c < n_cols ? table[(size_t)b * n_cols + c] : -1;
-    blk[j] = (x < 0 || x >= num_blocks) ? -1 : x;
-    any = any || blk[j] >= 0;
-  }
-  if (qp < 0) {  // idle slot: every key is masked, the output is exactly 0
-    if (split == 0)
-      for (int i = tid; i < G * Dv; i += blockDim.x) o[i] = from_f32<T>(0.f);
+  const bool any = split_blocks(trow, n_cols, num_blocks, split, blk);
+  if (split_idle(qp, any, split, n_splits, trow, n_cols, num_blocks, o,
+                 G * Dv, lst, flag))
     return;
-  }
-  if (!any) {
-    // no table column: this split adds nothing and takes no part in the
-    // merge.  A row with no column at all outputs exact zeros (0 / 1e-30)
-    if (split != 0) return;
-    if (warp == 0) {
-      int n = 0;
-      for (int s0 = 0; s0 < n_splits; s0 += MERGE_CHUNK)
-        n += list_live(table + (size_t)b * n_cols, n_cols, num_blocks, s0,
-                       lst);
-      if (lane == 0) flag[0] = n;
-    }
-    __syncthreads();
-    if (flag[0] == 0)
-      for (int i = tid; i < G * Dv; i += blockDim.x) o[i] = from_f32<T>(0.f);
-    return;
-  }
 
   load_rows<T, VEC, SWZ>(k, v, k_extra, ks, vs, kes, blk, page, Hkv, h, D,
                          Dv, De);
   if (VEC) asm volatile("cp.async.commit_group;\n" ::: "memory");
-  // the merge's count of live splits, and the list of the first chunk,
-  // by warp 0 while the copies are in flight
-  const int32_t* trow = table + (size_t)b * n_cols;
-  if (warp == 0) {
-    int n = list_live(trow, n_cols, num_blocks, 0, lst);
-    const int first = n;
-    for (int s0 = MERGE_CHUNK; s0 < n_splits; s0 += MERGE_CHUNK)
-      n += list_live(trow, n_cols, num_blocks, s0, lst + MERGE_CHUNK);
-    if (lane == 0) {
-      flag[0] = n;
-      flag[1] = first;
-    }
-  }
+  count_live(trow, n_cols, num_blocks, n_splits, lst, flag);
   // positions first: their loads are in flight while q is read
   for (int r = tid; r < R; r += blockDim.x) {
     const int bb = blk[r / page];
@@ -536,131 +746,15 @@ __global__ void __launch_bounds__(kThreads, 4) paged_split_kernel(
   }
 
   // the last of the live splits of this (slot, kv head) to finish merges
-  // the partials.  The block's stores are ordered before thread 0's
-  // counter update by the barrier, and that update releases them to the
-  // device and acquires the other blocks' (one acq_rel atomic, no fence
-  // in every thread)
-  __syncthreads();
-  if (tid == 0) {
-    int prev;
-    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
-                 : "=r"(prev)
-                 : "l"(counter + bh)
-                 : "memory");
-    flag[0] = prev == flag[0] - 1;
-  }
-  __syncthreads();
-  if (!flag[0]) return;
-  const float* pb = part + (size_t)bh * n_splits * part_stride;
-  // Chunks of MERGE_CHUNK splits, in order; per chunk one round of loads:
-  // warp 0 lists its live splits in split order (chunk 0's list is kept
-  // from above), their acc go to shared memory (over K/V, free by now) by
-  // cp.async, stage_n at a time, and their (m_s, l_s) beside them.  Then
-  // the running max of each query head takes the chunk's m_s (rescaling
-  // what was summed with alpha = e^(M_old - M)), the weights are
-  // e^(m_s - M), l adds l_s x weight in split order, and each thread adds
-  // the weighted acc of its K8 output elements in split order.  A live
-  // split with l_s = 0 (every row masked) has acc_s = 0: it adds exactly 0,
-  // as in the plain mirror, which skips it.  With one chunk this is the
-  // two-pass merge M = max m_s, sum e^(m_s - M) (...) exactly.
-  float* stage = reinterpret_cast<float*>(smem + L.ks);
-  float* m_al = reinterpret_cast<float*>(smem + L.sc);  // [G], scores are done
-  const bool vec_part = PM % 4 == 0;
-  const int units = vec_part ? PM / 4 : PM;
-  const int stage_n = max(1, (int)(L.sc - L.ks) / (4 * PM));
-  const int n_chunks = (n_splits + MERGE_CHUNK - 1) / MERGE_CHUNK;
-  const int n_first = flag[1];                 // live splits of chunk 0
-  constexpr int K8 = 8;
-  for (int i0 = 0; i0 < G * Dv; i0 += K8 * kThreads) {
-    float a[K8];
-    int gk[K8];
-#pragma unroll
-    for (int kk = 0; kk < K8; ++kk) {
-      const int i = i0 + kk * kThreads + tid;
-      a[kk] = 0.f;
-      gk[kk] = i < G * Dv ? i / Dv : -1;
-    }
-    __syncthreads();
-    if (tid < G) {
-      ms[tid] = kNegInf;
-      if (i0 == 0) ls[tid] = 0.f;
-    }
-    for (int c = 0; c < n_chunks; ++c) {
-      const int* l_ = c > 0 ? lst + MERGE_CHUNK : lst;
-      if (c > 0) {
-        __syncthreads();
-        if (warp == 0) {
-          const int n = list_live(trow, n_cols, num_blocks, c * MERGE_CHUNK,
-                                  lst + MERGE_CHUNK);
-          if (lane == 0) flag[1] = n;
-        }
-      }
-      __syncthreads();
-      const int n = c > 0 ? flag[1] : n_first;
-      for (int j0 = 0; j0 < n; j0 += stage_n) {
-        const int m = min(stage_n, n - j0);
-        if (j0 > 0) __syncthreads();
-        for (int j = 0; j < m; ++j) {
-          const float* src = pb + (size_t)l_[j0 + j] * part_stride;
-          float* dst = stage + (size_t)j * PM;
-          for (int u = tid; u < units; u += kThreads) {
-            if (vec_part)
-              cp_async16(dst + 4 * u, src + 4 * u);
-            else
-              cp_async4(dst + u, src + u);
-          }
-        }
-        asm volatile("cp.async.commit_group;\n" ::: "memory");
-        if (j0 == 0)
-          for (int x = tid; x < n * G; x += kThreads) {
-            const float* ps = pb + (size_t)l_[x / G] * part_stride;
-            cm[x] = __ldcg(ps + PM + x % G);
-            cl[x] = __ldcg(ps + PL + x % G);
-          }
-        asm volatile("cp.async.wait_all;\n" ::: "memory");
-        __syncthreads();
-        if (j0 == 0) {
-          float* mnew = m_al + MAX_GROUP;
-          if (tid < G) {
-            float M = ms[tid];
-            for (int j = 0; j < n; ++j) M = fmaxf(M, cm[j * G + tid]);
-            mnew[tid] = M;
-            m_al[tid] = expf(ms[tid] - M);
-          }
-          __syncthreads();
-          for (int x = tid; x < n * G; x += kThreads)
-            cm[x] = expf(cm[x] - mnew[x % G]);
-          __syncthreads();
-          if (tid < G) {
-            float l = ls[tid] * m_al[tid];
-            for (int j = 0; j < n; ++j) l += cl[j * G + tid] * cm[j * G + tid];
-            if (i0 == 0) ls[tid] = l;
-            ms[tid] = mnew[tid];
-          }
-#pragma unroll
-          for (int kk = 0; kk < K8; ++kk)
-            a[kk] *= gk[kk] >= 0 ? m_al[gk[kk]] : 0.f;
-        }
-        for (int j = 0; j < m; ++j) {
-#pragma unroll
-          for (int kk = 0; kk < K8; ++kk) {
-            const bool v = gk[kk] >= 0;
-            const float w = v ? cm[(j0 + j) * G + gk[kk]] : 0.f;
-            const float x =
-                v ? stage[(size_t)j * PM + i0 + kk * kThreads + tid] : 0.f;
-            a[kk] += x * w;
-          }
-        }
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < K8; ++kk)
-      if (gk[kk] >= 0)
-        o[i0 + kk * kThreads + tid] =
-            from_f32<T>(a[kk] / fmaxf(ls[gk[kk]], 1e-30f));
-  }
-  if (tid == 0) counter[bh] = 0;
+  // the partials: acc_s staged over K / V, (m_s, l_s) over the weights
+  if (!last_split(counter + bh, flag)) return;
+  merge_splits<8>(part + (size_t)bh * n_splits * part_stride, part_stride, G,
+                  Dv, n_splits, trow, n_cols, num_blocks, lst, flag,
+                  reinterpret_cast<float*>(smem + L.ks),
+                  max(1, (int)(L.sc - L.ks) / (4 * PM)), cm, cl, ms, ls,
+                  reinterpret_cast<float*>(smem + L.sc),
+                  reinterpret_cast<float*>(smem + L.sc) + MAX_GROUP, o,
+                  counter + bh);
 }
 
 template <typename T, bool VEC, bool SWZ, int GB>
@@ -738,6 +832,359 @@ int launch_any(bool vec, const void* q, const void* k, const void* v,
                                    k_extra, out, part, counter, B, Hkv, G, D,
                                    Dv, De, page, n_cols, num_blocks, scale,
                                    window, softcap, s);
+}
+
+// ---------------------------------------------------------------------------
+// The wide-head instance (see the header): gemma3-12b's decode shape only,
+// bf16, G = 2, D = Dv = 256, 16-row pages.  A warp per K row, each warp's
+// pages through a 2-stage cp.async ring, an online softmax per warp, the
+// warps' partials combined in warp order; the split kernel's splits,
+// partials, prologue, counter and merge.
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_G = 2;                          // query heads a kv head
+constexpr int WIDE_D = 256;                        // D = Dv: a unit a lane
+constexpr int WIDE_PAGE = 16;
+constexpr int WIDE_WARPS = kThreads / 32;
+constexpr int WIDE_ROWS = WIDE_PAGE / WIDE_WARPS;  // rows of a page a warp
+constexpr int WIDE_STAGES = 2;                     // pages in flight a warp
+
+// Byte offsets of one wide block's dynamic shared memory: the warps' rings
+// of K and V rows, [warp][stage][row][K | V] in bf16 (the warps' partials,
+// then the merge's staged acc_s, reuse the region once every warp is
+// done), then the merge's lists of live splits (chunk 0's, the current
+// chunk's), their weights and l_s, the running max, l, rescale factor and
+// new max, and flags.
+struct WideSmem {
+  size_t rows, lst, cw, cl, ml, flag, total;
+  __host__ __device__ WideSmem(int G, int D, int Dv) {
+    const size_t staged =
+        (size_t)WIDE_WARPS * WIDE_STAGES * WIDE_ROWS * (D + Dv) * 2;
+    const size_t partials = sizeof(float) * WIDE_WARPS * part_floats(G, Dv);
+    rows = 0;
+    lst = round16(staged > partials ? staged : partials);
+    cw = round16(lst + sizeof(int) * 2 * MERGE_CHUNK);
+    cl = cw + sizeof(float) * MERGE_CHUNK * G;
+    ml = cl + sizeof(float) * MERGE_CHUNK * G;    // m, l, alpha, M: 4 G
+    flag = ml + sizeof(float) * 4 * G;
+    total = flag + 2 * sizeof(int);
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Sums each of NV values (NV a power of two up to 32) over the warp and
+// leaves every sum in every lane.  Each xor step keeps half of a lane's
+// values and hands the other half to its partner, so after log2 NV steps a
+// lane holds one value (index: the lane's bits at the offsets folded)
+// summed over those lanes; the other offsets finish its sum, and NV
+// shuffles hand each sum back to every lane: 2 NV + 4 - log2 NV shuffles
+// against 5 NV for a butterfly per value.
+template <int NV>
+__device__ __forceinline__ void warp_sum_all(float (&v)[NV]) {
+  static_assert(NV >= 1 && NV <= 32 && (NV & (NV - 1)) == 0, "NV");
+  constexpr int LOG = NV >= 32 ? 5 : NV >= 16 ? 4 : NV >= 8 ? 3
+                    : NV >= 4 ? 2 : NV >= 2 ? 1 : 0;
+  const int lane = threadIdx.x & 31;
+  float x[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) x[i] = v[i];
+#pragma unroll
+  for (int st = 0; st < LOG; ++st) {           // fold half the values
+    const int h = NV >> (st + 1), off = 16 >> st;
+    const bool up = lane & off;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float keep = up ? x[i + h] : x[i];
+      const float send = up ? x[i] : x[i + h];
+      x[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+  }
+  float t = x[0];
+#pragma unroll
+  for (int st = LOG; st < 5; ++st)
+    t += __shfl_xor_sync(0xffffffffu, t, 16 >> st);
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {               // lane holding sum k
+    int src = 0;
+#pragma unroll
+    for (int st = 0; st < LOG; ++st)
+      if ((k >> (LOG - 1 - st)) & 1) src += 16 >> st;
+    v[k] = __shfl_sync(0xffffffffu, t, src);
+  }
+}
+
+// One warp's copies of one page into stage `slot` of its ring: rows w, w +
+// 4, w + 8, w + 12 of kv head h, lane u taking 16-byte unit u of each K
+// and V row (none for a -1 column)
+__device__ __forceinline__ void wide_issue(int bj, int slot,
+                                           __nv_bfloat16* wrows,
+                                           const __nv_bfloat16* k,
+                                           const __nv_bfloat16* v, int Hkv,
+                                           int h, int warp, int lane) {
+  if (bj < 0) return;
+#pragma unroll
+  for (int i = 0; i < WIDE_ROWS; ++i) {
+    const size_t grow =
+        ((size_t)bj * WIDE_PAGE + warp + WIDE_WARPS * i) * Hkv + h;
+    __nv_bfloat16* dst = wrows + (size_t)(slot * WIDE_ROWS + i) * 2 * WIDE_D;
+    cp_async16(dst + 8 * lane, k + grow * WIDE_D + 8 * lane);
+    cp_async16(dst + WIDE_D + 8 * lane, v + grow * WIDE_D + 8 * lane);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) paged_wide_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ pos,
+    const int32_t* __restrict__ table, const int32_t* __restrict__ q_pos,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ part,
+    int* __restrict__ counter, int Hkv, int n_cols, int num_blocks,
+    float scale, int window, float softcap) {
+  constexpr int G = WIDE_G, D = WIDE_D, Dv = WIDE_D;
+  static_assert(D == 8 * 32, "a lane takes one 16-byte unit of a row");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WideSmem L(G, D, Dv);
+  __nv_bfloat16* rows = reinterpret_cast<__nv_bfloat16*>(smem + L.rows);
+  int* lst = reinterpret_cast<int*>(smem + L.lst);
+  float* cw = reinterpret_cast<float*>(smem + L.cw);   // [chunk][G] weights
+  float* cl = reinterpret_cast<float*>(smem + L.cl);   // [chunk][G] l_s
+  float* ms = reinterpret_cast<float*>(smem + L.ml);   // [G] running max
+  float* ls = ms + G;                                  // [G] running l
+  float* m_al = ls + G;                                // [G] rescale
+  float* mnew = m_al + G;                              // [G] new max
+  int* flag = reinterpret_cast<int*>(smem + L.flag);
+
+  // grid (Hkv x n_splits, B): a slot's splits run together, so most
+  // merges overlap other slots' loads instead of all waiting for the end
+  const int b = blockIdx.y, h = blockIdx.x % Hkv;
+  const int bh = b * Hkv + h;
+  const int split = blockIdx.x / Hkv, n_splits = gridDim.x / Hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t head0 = (size_t)b * Hkv * G + (size_t)h * G;
+  __nv_bfloat16* o = out + head0 * Dv;
+  const size_t part_stride = part_floats(G, Dv);
+  const int PM = G * Dv, PL = G * Dv + G;              // offsets of m and l
+  float* my_part = part + ((size_t)bh * n_splits + split) * part_stride;
+  const int32_t* trow = table + (size_t)b * n_cols;
+
+  const int qp = q_pos[b];
+  int blk[PAGES_PER_SPLIT];
+  const bool any = split_blocks(trow, n_cols, num_blocks, split, blk);
+  if (split_idle(qp, any, split, n_splits, trow, n_cols, num_blocks, o,
+                 G * Dv, lst, flag))
+    return;
+
+  // this warp's rows w, w + 4, w + 8, w + 12 of each live page go through
+  // a ring of WIDE_STAGES pages: lane u copies 16-byte unit u of each K row
+  // and of each V row, one commit group a page (empty for a -1 column or
+  // past the split), so with WIDE_STAGES - 1 groups left pending the page
+  // at hand has landed.  A lane reads back only the units it copied
+  const int rstride = D + Dv;                          // elements a staged row
+  __nv_bfloat16* wrows =
+      rows + (size_t)warp * WIDE_STAGES * WIDE_ROWS * rstride;
+#pragma unroll
+  for (int j = 0; j < WIDE_STAGES; ++j) {
+    wide_issue(blk[j], j, wrows, k, v, Hkv, h, warp, lane);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  count_live(trow, n_cols, num_blocks, n_splits, lst, flag);
+  // which of this warp's 16 rows are unmasked: lane 4 j + i reads row i of
+  // page j
+  bool ok_l = false;
+  if (lane < PAGES_PER_SPLIT * WIDE_ROWS) {
+    const int j = lane / WIDE_ROWS, i = lane % WIDE_ROWS;
+    int bb = blk[0];
+#pragma unroll
+    for (int jj = 1; jj < PAGES_PER_SPLIT; ++jj)   // no local-memory index
+      if (j == jj) bb = blk[jj];
+    const int p =
+        bb >= 0 ? pos[(size_t)bb * WIDE_PAGE + warp + WIDE_WARPS * i] : -1;
+    ok_l = (p >= 0) && (p <= qp) && (window <= 0 || p > qp - window);
+  }
+  const unsigned okmask = __ballot_sync(0xffffffffu, ok_l);
+  // the G query rows' unit `lane`, unscaled, as float32
+  float qf[G][8];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    unpack(*reinterpret_cast<const uint4*>(q + (head0 + g) * D + 8 * lane),
+           qf[g]);
+
+  // per page: scores of the warp's 4 rows (a lane's 8-element dot, summed
+  // over the warp by shuffles), the online softmax (m and l the same on
+  // every lane), then P.V with lane u owning V columns 8 u .. 8 u + 7 of
+  // every head; then the page's stage takes the page WIDE_STAGES on.  A
+  // masked row gets p = 0 and adds nothing; a -1 column's page, or one
+  // with no unmasked row here, is skipped
+  float m[G], l[G], acc[G][8];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < PAGES_PER_SPLIT; ++j) {
+    cp_async_wait<WIDE_STAGES - 1>();
+    const unsigned okp = (okmask >> (WIDE_ROWS * j)) & ((1u << WIDE_ROWS) - 1);
+    const __nv_bfloat16* pr =
+        wrows + (size_t)(j % WIDE_STAGES) * WIDE_ROWS * rstride;
+    if (okp != 0) {
+      float s[WIDE_ROWS * G];          // [row][head], summed over the warp
+#pragma unroll
+      for (int i = 0; i < WIDE_ROWS; ++i) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) s[i * G + g] = 0.f;
+        float kf[8];
+        unpack(*reinterpret_cast<const uint4*>(pr + (size_t)i * rstride +
+                                               8 * lane),
+               kf);
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            s[i * G + g] = fmaf(qf[g][e], kf[e], s[i * G + g]);
+      }
+      warp_sum_all(s);
+      // the online softmax: each head's new max; lane k computes p of
+      // (row k / G, head k % G) and a shuffle hands each p to every lane;
+      // l and acc rescale only when a head's max moved (alpha = 1 else)
+      float mn[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int i = 0; i < WIDE_ROWS; ++i) {
+          float y = s[i * G + g] * scale;
+          if (softcap > 0.f) y = softcap * tanhf(y / softcap);
+          s[i * G + g] = y;
+          if ((okp >> i) & 1) mx = fmaxf(mx, y);
+        }
+        mn[g] = fmaxf(m[g], mx);
+      }
+      constexpr int NV = WIDE_ROWS * G;
+      const int kv = lane % NV;
+      float sk = s[0], mk = mn[0];
+#pragma unroll
+      for (int x = 1; x < NV; ++x)         // no local-memory index
+        if (kv == x) sk = s[x], mk = mn[x % G];
+      const float pk = (okp >> (kv / G)) & 1 ? expf(sk - mk) : 0.f;
+      float p[WIDE_ROWS][G];
+#pragma unroll
+      for (int i = 0; i < WIDE_ROWS; ++i)
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          p[i][g] = __shfl_sync(0xffffffffu, pk, i * G + g);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float psum = 0.f;
+#pragma unroll
+        for (int i = 0; i < WIDE_ROWS; ++i) psum += p[i][g];
+        if (mn[g] > m[g]) {
+          const float alpha = expf(m[g] - mn[g]);
+          l[g] *= alpha;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[g][e] *= alpha;
+          m[g] = mn[g];
+        }
+        l[g] += psum;
+      }
+#pragma unroll
+      for (int i = 0; i < WIDE_ROWS; ++i) {
+        if (!((okp >> i) & 1)) continue;
+        float vf[8];
+        unpack(*reinterpret_cast<const uint4*>(pr + (size_t)i * rstride + D +
+                                               8 * lane),
+               vf);
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            acc[g][e] = fmaf(p[i][g], vf[e], acc[g][e]);
+      }
+    }
+    __syncwarp();                      // the stage's reads are done
+    if (j + WIDE_STAGES < PAGES_PER_SPLIT)
+      wide_issue(blk[min(j + WIDE_STAGES, PAGES_PER_SPLIT - 1)],
+                 j % WIDE_STAGES, wrows, k, v, Hkv, h, warp, lane);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
+  // the warps' partials, combined in warp order into the split's: M = max
+  // m_w, l_s = sum l_w e^(m_w - M), acc_s = sum acc_w e^(m_w - M)
+  __syncthreads();                   // every warp is done with its rows
+  float* wp = reinterpret_cast<float*>(smem + L.rows);  // [warp][part]
+  {
+    float* mine = wp + (size_t)warp * part_stride;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float4* d4 = reinterpret_cast<float4*>(mine + g * Dv + 8 * lane);
+      d4[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+      d4[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        mine[PM + g] = m[g];
+        mine[PL + g] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < PL + G; i += kThreads) {
+    const int g = i < PM ? i / Dv : (i - PM) % G;
+    float M = kNegInf;
+#pragma unroll
+    for (int w = 0; w < WIDE_WARPS; ++w)
+      M = fmaxf(M, wp[(size_t)w * part_stride + PM + g]);
+    float a = 0.f;
+    if (i >= PM && i < PL) {
+      a = M;
+    } else {
+#pragma unroll
+      for (int w = 0; w < WIDE_WARPS; ++w)
+        a += wp[(size_t)w * part_stride + i] *
+             expf(wp[(size_t)w * part_stride + PM + g] - M);
+    }
+    my_part[i] = a;
+  }
+
+  // the last of the live splits of this (slot, kv head) to finish merges
+  // the partials: acc_s staged over the rows, 16 a round, an output
+  // element of each head a thread (8 would spill across the division)
+  if (!last_split(counter + bh, flag)) return;
+  merge_splits<G * Dv / kThreads>(
+      part + (size_t)bh * n_splits * part_stride, part_stride, G, Dv,
+      n_splits, trow, n_cols, num_blocks, lst, flag,
+      reinterpret_cast<float*>(smem + L.rows),
+      max(1, (int)(L.lst / (sizeof(float) * PM))), cw, cl, ms, ls, m_al, mnew,
+      o, counter + bh);
+}
+
+int launch_wide(const void* q, const void* k, const void* v, const void* pos,
+                const void* table, const void* q_pos, void* out, void* part,
+                void* counter, int B, int Hkv, int n_cols, int num_blocks,
+                float scale, int window, float softcap, cudaStream_t stream) {
+  const size_t smem = WideSmem(WIDE_G, WIDE_D, WIDE_D).total;
+  auto kernel = paged_wide_kernel;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int n_splits = (n_cols + PAGES_PER_SPLIT - 1) / PAGES_PER_SPLIT;
+  kernel<<<dim3(Hkv * n_splits, B), kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int32_t*>(pos),
+      static_cast<const int32_t*>(table), static_cast<const int32_t*>(q_pos),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(part),
+      static_cast<int*>(counter), Hkv, n_cols, num_blocks, scale, window,
+      softcap);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1408,6 +1855,11 @@ long long paged_attention_part_floats(int G, int Dv) {
   return (long long)part_floats(G, Dv);
 }
 
+// Bytes of dynamic shared memory one block of the wide-head instance needs.
+long long paged_attention_wide_smem_bytes(int G, int D, int Dv) {
+  return (long long)WideSmem(G, D, Dv).total;
+}
+
 // Bytes of dynamic shared memory one block of the kernel needs for
 // elements of `isz` bytes.
 long long paged_attention_smem_bytes(int G, int D, int Dv, int De, int page,
@@ -1422,7 +1874,10 @@ long long paged_attention_smem_bytes(int G, int D, int Dv, int De, int page,
 // paged_attention_part_floats(G, Dv) elements, n_splits = ceil(n_cols /
 // PAGES_PER_SPLIT);
 // counter: B * Hkv ints, zero before the launch and zero again after it.
-// G <= 16 (instance 0).  instance 1: the CUDA-core head-tiled instance (any
+// G <= 16 (instance 0).  instance 3: the wide-head split instance
+// (gemma3-12b's shape: bf16, vec, De == 0, G == 2, D == Dv == 256, 16-row
+// pages, 16-byte aligned q), with instance 0's scratch and counter.
+// instance 1: the CUDA-core head-tiled instance (any
 // G; vec rows only), instance 2: the tensor-core one (bf16, kv_same, page
 // MMA_R / PAGES_PER_SPLIT, G a multiple of MMA_TH, (D + De) % 16 == 0,
 // Dv % 128 == 0, Dv <= D, 16-byte aligned q / q_extra).  Each launches its
@@ -1440,6 +1895,14 @@ int paged_attention_fwd(const void* q, const void* k, const void* v,
                         float softcap, int dtype, int vec, int instance,
                         int kv_same, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (instance == 3) {
+    if (dtype != 1 || !vec || De != 0 || G != WIDE_G || D != WIDE_D ||
+        Dv != WIDE_D || page != WIDE_PAGE || n_cols < 1 || B > 65535 ||
+        reinterpret_cast<uintptr_t>(q) % 16)
+      return (int)cudaErrorInvalidValue;
+    return launch_wide(q, k, v, pos, table, q_pos, out, part, counter, B,
+                       Hkv, n_cols, num_blocks, scale, window, softcap, s);
+  }
   if (instance == 2) {
     if (dtype != 1 || !vec || !kv_same || page * PAGES_PER_SPLIT != MMA_R ||
         G % MMA_TH || (D + De) % 16 || Dv % 128 || Dv > D || n_cols < 1)

@@ -13,13 +13,16 @@ head-tiled instance launches its split kernel and the merge kernel), so
 a run can show that its decode ticks went through it;
 ``paged_attention_fwd.window_launches`` counts those of them with a
 window, so a run can tell a model's sliding-window layers from its
-global ones.  The launch is the custom op ``repro_torch::paged_attention``
+global ones, and ``paged_attention_fwd.instance_launches`` counts them
+by the instance that ran (``instance``).  The launch is the custom op ``repro_torch::paged_attention``
 (CUDA only), with a fake implementation and a FLOP formula, so a dry-run
 traces it on fake tensors without launching or counting anything; on a
 mesh the model calls it on each rank's shard (``models.hints.LAYOUTS``).
 
 Query groups of up to ``MAX_GROUP`` heads with head dims up to
-``MAX_HEAD_DIM`` run the split kernel; larger ones (MLA's absorbed decode:
+``MAX_HEAD_DIM`` run the split kernel, gemma3-12b's decode shape (bf16,
+``WIDE_GROUP`` heads of ``WIDE_HEAD_DIM``) its wide-head instance, a warp
+per K row with the exact group; larger ones (MLA's absorbed decode:
 G = 128 heads over one latent head of 512 plus a 64-wide rope term) run
 a head-tiled instance (``instance`` says which): in bf16, with one tensor
 passed as both k and v (MLA's latent pool) and 16-row pages, the
@@ -44,9 +47,12 @@ from repro_torch.kernels.ref import PAGES_PER_SPLIT, paged_attention_ref
 
 MAX_HEAD_DIM = 256                # of the split kernel
 MAX_GROUP = 16                    # of the split kernel
+WIDE_GROUP = 2                    # of its wide-head instance: gemma3's
+WIDE_HEAD_DIM = 256               # G = 2, D = Dv = 256, 16-row pages, bf16
+WIDE_PAGE = 16
 TILE_HEADS = 16                   # query heads a block of the tiled instance
 MMA_HEADS, MMA_ROWS = 64, 64      # heads and rows a block of the mma one
-_INSTANCES = {"split": 0, "tiled": 1, "mma": 2}
+_INSTANCES = {"split": 0, "tiled": 1, "mma": 2, "wide": 3}
 MAX_SMEM_BYTES = 232_448          # 227 KB: what one Hopper block can use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -68,6 +74,8 @@ def _lib() -> ctypes.CDLL:
         lib.paged_attention_tiled_smem_bytes.restype = ctypes.c_longlong
         lib.paged_attention_mma_smem_bytes.argtypes = [i] * 2
         lib.paged_attention_mma_smem_bytes.restype = ctypes.c_longlong
+        lib.paged_attention_wide_smem_bytes.argtypes = [i] * 3
+        lib.paged_attention_wide_smem_bytes.restype = ctypes.c_longlong
         for fn in ("tile_heads", "mma_heads", "mma_rows"):
             getattr(lib, f"paged_attention_{fn}").argtypes = []
             getattr(lib, f"paged_attention_{fn}").restype = ctypes.c_int
@@ -90,6 +98,8 @@ def smem_bytes(inst: str, G: int, D: int, Dv: int, De: int, page: int,
     formula)."""
     if inst == "mma":
         return int(_lib().paged_attention_mma_smem_bytes(D, De))
+    if inst == "wide":
+        return int(_lib().paged_attention_wide_smem_bytes(G, D, Dv))
     if inst == "tiled":
         return int(_lib().paged_attention_tiled_smem_bytes(
             D, Dv, De, page, itemsize, int(kv_same)))
@@ -98,14 +108,22 @@ def smem_bytes(inst: str, G: int, D: int, Dv: int, De: int, page: int,
 
 
 def instance(G: int, D: int, Dv: int, De: int, page: int,
-             dtype: torch.dtype, kv_same: bool, aligned: bool = True) -> str:
-    """The kernel instance a call runs: "split" (G <= ``MAX_GROUP``, head
-    dims <= ``MAX_HEAD_DIM``), else a head-tiled one: "mma" on the tensor
-    cores where its shape allows (bf16; k is v; 16-row pages; G a
-    multiple of ``MMA_HEADS``; D + De a multiple of 16; Dv a multiple of
-    128 and at most D; 16-byte aligned q and q_extra), else "tiled" on
-    the CUDA cores (float32 among them: the tensor cores would round
-    it)."""
+             dtype: torch.dtype, kv_same: bool, aligned: bool = True,
+             vec: bool = True) -> str:
+    """The kernel instance a call runs: "wide", the split kernel's
+    instance for gemma3-12b's decode shape (bf16; G = ``WIDE_GROUP``;
+    D = Dv = ``WIDE_HEAD_DIM``; no second contraction; 16-row pages;
+    16-byte aligned q (``aligned``) and pools of 16-byte rows
+    (``vec``)); else "split" (G <= ``MAX_GROUP``, head dims <=
+    ``MAX_HEAD_DIM``); else a head-tiled one: "mma" on the tensor cores
+    where its shape allows (bf16; k is v; 16-row pages; G a multiple of
+    ``MMA_HEADS``; D + De a multiple of 16; Dv a multiple of 128 and at
+    most D; 16-byte aligned q and q_extra), else "tiled" on the CUDA
+    cores (float32 among them: the tensor cores would round it)."""
+    if (dtype == torch.bfloat16 and G == WIDE_GROUP and De == 0
+            and D == Dv == WIDE_HEAD_DIM and page == WIDE_PAGE and aligned
+            and vec):
+        return "wide"
     if G <= MAX_GROUP and max(D, Dv, De) <= MAX_HEAD_DIM:
         return "split"
     if (dtype == torch.bfloat16 and kv_same and aligned
@@ -191,6 +209,7 @@ def paged_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 paged_attention_fwd.launches = 0
 paged_attention_fwd.window_launches = 0
+paged_attention_fwd.instance_launches = dict.fromkeys(_INSTANCES, 0)
 
 
 @torch.library.custom_op("repro_torch::paged_attention", mutates_args=(),
@@ -217,8 +236,8 @@ def _paged_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                and v.stride() == k.stride())
     aligned = all(t.data_ptr() % 16 == 0
                   for t in (q,) + ((q_extra,) if De else ()))
-    chosen = instance(G, D, Dv, De, page, q.dtype, kv_same, aligned)
-    if chosen != "split" and not vec:
+    chosen = instance(G, D, Dv, De, page, q.dtype, kv_same, aligned, vec)
+    if chosen in ("tiled", "mma") and not vec:
         raise ValueError(f"the head-tiled paged decode kernel takes head "
                          f"dims of whole 16-byte units and 16-byte aligned "
                          f"pools: D={D} Dv={Dv} De={De} {q.dtype}")
@@ -233,7 +252,8 @@ def _paged_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"paged decode kernel takes at most "
                          f"{65535 * PAGES_PER_SPLIT} table columns: {n_cols}")
     # the head-tiled instances keep partials per head tile
-    heads = {"split": G, "tiled": TILE_HEADS, "mma": MMA_HEADS}[chosen]
+    heads = {"split": G, "wide": G, "tiled": TILE_HEADS,
+             "mma": MMA_HEADS}[chosen]
     groups = B * Hkv * -(-G // heads)
     out = torch.empty((B, 1, Hq, Dv), dtype=q.dtype, device=q.device)
     part_floats = int(_lib().paged_attention_part_floats(heads, Dv))
@@ -255,6 +275,7 @@ def _paged_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"paged_attention_fwd: CUDA launch failed "
                            f"(cudaError_t {err})")
     paged_attention_fwd.launches += 1
+    paged_attention_fwd.instance_launches[chosen] += 1
     if window > 0:
         paged_attention_fwd.window_launches += 1
     return out

@@ -712,7 +712,7 @@ def test_real_kernels_clean_under_krn_and_grad_rules():
     assert rep.files_scanned >= 8 and rep.parse_errors == []
     assert rep.findings == [], "\n".join(f.format() for f in rep.findings)
     exports = krn001.load_exports(KERNELS / "csrc")
-    assert len(exports) == 16
+    assert len(exports) == 17
     assert {f.source for f in exports.values()} == {
         f"{s}.cu" for s in ("flash_attention", "mamba_scan",
                             "paged_attention", "quantize", "rwkv_scan")}

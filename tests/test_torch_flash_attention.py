@@ -93,14 +93,14 @@ def test_flash_attention_matches_jax_kernel(B, Hq, Hkv, S, D, window, dtype):
 def tc_kernel_rounding_model(q, k, v, *, window=0, p_parts=2):
     """The arithmetic of the bf16 tensor-core instance of
     ``csrc/flash_attention.cu``, in float32 torch: exact scores, the online
-    softmax walking the kv tiles of the instance (64 keys for head dims
-    <= 128, 32 for <= 256) from the last down, and P in bf16
+    softmax walking the kv tiles of the instance (64 keys at every head
+    dim, the D = 256 instance's too) from the last down, and P in bf16
     before P.V (the row sums keep the unrounded P): as hi + lo,
     hi = bf16(P) and lo = bf16(P - hi) (``p_parts=2``, the kernel), or as
     bf16(P) alone (``p_parts=1``).  Causal, by index, as the kernel."""
     B, Hq, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
-    BK = 64 if D <= 128 else 32
+    BK = 64
     c = D ** -0.5
     kq = k.float().repeat_interleave(Hq // Hkv, dim=1)
     vq = v.float().repeat_interleave(Hq // Hkv, dim=1)
@@ -128,16 +128,24 @@ def tc_kernel_rounding_model(q, k, v, *, window=0, p_parts=2):
     return (acc / l.clamp(min=1e-30)).to(torch.bfloat16)
 
 
+# gemma3-12b's head geometry (16 q / 8 kv heads of 256) at a CPU size:
+# windowed, causal across several 64-key tiles, and T > S
+GEMMA_TC = [(1, 4, 2, 200, 256, 64, None), (2, 4, 2, 130, 256, 0, None),
+            (1, 4, 2, 40, 256, 0, 150)]
+
+
 @pytest.mark.parametrize("p_parts", [2, 1])
 @pytest.mark.parametrize("B,Hq,Hkv,S,D,window,T",
-                         [c + (None,) for c in SWEEP] + [(2, 4, 2, 40, 64, 0, 100)])
+                         [c + (None,) for c in SWEEP] + [(2, 4, 2, 40, 64, 0, 100)]
+                         + GEMMA_TC)
 def test_tensor_core_rounding_model_matches_jax_kernel(B, Hq, Hkv, S, D, window,
                                                        T, p_parts):
     """The tensor-core kernel's rounding (P to bf16 as hi + lo before P.V,
-    its tile walk) keeps the bf16 output within the bf16 tolerance of the
-    JAX kernel at the sweep shapes and with T > S; so does P rounded to
-    bf16 once, which the kernel does not use (it moved qwen3-8b's step-0
-    gradients past their tolerance on the card)."""
+    its 64-key tile walk) keeps the bf16 output within the bf16 tolerance
+    of the JAX kernel at the sweep shapes, with T > S and at gemma3-12b's
+    head geometry (D = 256); so does P rounded to bf16 once, which no
+    instance uses (it moved qwen3-8b's and gemma3-12b's step-0 gradients
+    past their tolerance on the card)."""
     q, k, v = qkv(B, Hq, Hkv, S, D, seed=S + D, T=T)
     jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
     exp = np.asarray(jops.flash_attention(*jb, window=window), np.float32)

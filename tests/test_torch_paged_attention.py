@@ -242,6 +242,94 @@ def test_split_ref_empty_splits_and_idle_slot():
     torch.testing.assert_close(out[0], exp[0], atol=2e-5, rtol=2e-5)
 
 
+# gemma3-12b's decode head geometry at a CPU size: 4 q / 2 kv heads (G =
+# 2) of 256, 16-row pages (the wide-head instance on the card)
+GEMMA_CPU = dict(B=2, Hq=4, Hkv=2, D=256, page=16)
+GEMMA_WINDOW = 48
+
+
+def gemma_ring_case(seed, lengths=(100, 37), lag=(3, 1), ring_cols=4):
+    """Each row's ring of ``ring_cols`` 16-row pages (64 positions, scattered
+    blocks) after writing positions 0 .. length - 1 (slot p % 64 holds the
+    newest p); row b queries at length - 1 + lag, so with the window of
+    48 the ring's oldest positions lie below it.  A ring not yet wrapped
+    leaves its unwritten columns -1."""
+    rng = np.random.RandomState(seed)
+    B, Hq, Hkv, D, page = (GEMMA_CPU[k] for k in ("B", "Hq", "Hkv", "D",
+                                                  "page"))
+    N = B * ring_cols + 2
+    table = rng.permutation(N)[:B * ring_cols].reshape(B, ring_cols)
+    table = table.astype(np.int32)
+    pos = np.full((N, page), -1, np.int32)
+    R = ring_cols * page
+    for b in range(B):
+        for p in range(max(0, lengths[b] - R), lengths[b]):
+            sl = p % R
+            pos[table[b, sl // page], sl % page] = p
+        table[b, -(-lengths[b] // page):] = -1
+    return {"q": rng.randn(B, 1, Hq, D), "k": rng.randn(N, page, Hkv, D),
+            "v": rng.randn(N, page, Hkv, D), "pos": pos, "table": table,
+            "q_pos": np.asarray([[lengths[b] - 1 + lag[b]] for b in range(B)],
+                                np.int32)}
+
+
+def gemma_case(layout, seed):
+    """(case, window): the wrapped ring with its window, or a global
+    layer's 8-column table with -1 tail columns (5 pages used, 2 splits)."""
+    if layout == "ring":
+        return gemma_ring_case(seed), GEMMA_WINDOW
+    g = GEMMA_CPU
+    return pool_case(g["B"], g["Hq"], g["Hkv"], g["D"], g["page"], 8,
+                     used_cols=5, seed=seed), 0
+
+
+PLAIN_FNS = {"plain": paged_attention_ref, "split": paged_attention_split_ref}
+
+
+@pytest.mark.parametrize("fn", list(PLAIN_FNS))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("layout", ["ring", "table"])
+def test_gemma_geometry_matches_jax(layout, dtype, fn):
+    """gemma3's G = 2, D = 256 decode: the plain version and the split-K
+    mirror against the JAX kernel, over a wrapped ring whose oldest
+    positions the window masks and over a table with -1 tail columns."""
+    jdt, tdt, tol = DTYPES[dtype]
+    case, window = gemma_case(layout, seed=21)
+    if layout == "ring":     # the window masks a position the ring holds
+        q_pos = case["q_pos"][:, :1]
+        got = case["pos"][np.maximum(case["table"], 0)]
+        assert ((case["table"] >= 0)[..., None] & (got >= 0)
+                & (got <= q_pos[:, :, None] - window)).any()
+    exp = call(jops, to_jax(case, jdt), window=window)
+    c = to_torch(case, tdt)
+    out = PLAIN_FNS[fn](*(c[k] for k in ARGS), window=window)
+    assert out.dtype == tdt and out.shape == (2, 1, 4, 256)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(exp, np.float32), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("fn", list(PLAIN_FNS))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("layout", ["ring", "table"])
+def test_gemma_geometry_appended_columns_neutral(layout, dtype, fn):
+    """At gemma3's geometry, -1 columns appended inside the last split and
+    as a whole empty split leave every output bit unchanged; an idle slot
+    outputs exact zeros."""
+    case, window = gemma_case(layout, seed=22)
+    c = to_torch(case, DTYPES[dtype][1])
+    f = PLAIN_FNS[fn]
+    base = f(*(c[k] for k in ARGS), window=window)
+    for extra in (1, PAGES_PER_SPLIT + 2):
+        wide = dict(c, table=torch.cat([c["table"], torch.full(
+            (2, extra), -1, dtype=torch.int32)], 1))
+        assert torch.equal(f(*(wide[k] for k in ARGS), window=window), base)
+    c["q_pos"] = c["q_pos"].clone()
+    c["q_pos"][1, 0] = -1
+    out = f(*(c[k] for k in ARGS), window=window)
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+    assert torch.equal(out[0], base[0])
+
+
 def test_cpu_path_counts_no_launch_and_other_devices_raise():
     """On CPU tensors the wrapper runs the plain version: the launch count
     stays put.  A tensor on any other non-CUDA device is refused."""
@@ -329,8 +417,25 @@ def test_instance_choice():
     float32 (which the tensor cores would round), a separate v, other
     pages, an odd head count or the CPU-sized copy of the shape to the
     CUDA cores.  The GQA decode shapes of qwen3-8b and jamba, and the
-    small MLA case, keep the split kernel."""
+    small MLA case, keep the split kernel.  gemma3-12b's decode (G = 2,
+    D = Dv = 256, 16-row pages, bf16) takes the split kernel's wide-head
+    instance, built for that shape alone; in float32, unaligned, with
+    other pages, another group or other head dims it keeps the split
+    kernel."""
     bf, f32 = torch.bfloat16, torch.float32
+    assert instance(2, 256, 256, 0, 16, bf, False) == "wide"     # gemma3
+    assert instance(1, 256, 256, 0, 16, bf, False) == "split"
+    assert instance(2, 192, 192, 0, 16, bf, False) == "split"
+    assert instance(2, 256, 128, 0, 16, bf, False) == "split"
+    assert instance(2, 256, 256, 0, 16, f32, False) == "split"
+    assert instance(2, 256, 256, 0, 16, bf, False, aligned=False) == "split"
+    assert instance(2, 256, 256, 0, 16, bf, False, vec=False) == "split"
+    assert instance(2, 256, 256, 0, 8, bf, False) == "split"
+    assert instance(2, 256, 256, 16, 16, bf, False) == "split"
+    assert instance(4, 256, 256, 0, 16, bf, False) == "split"
+    assert instance(2, 128, 128, 0, 16, bf, False) == "split"
+    assert instance(4, 128, 128, 0, 16, bf, False) == "split"    # qwen3-8b
+    assert instance(8, 128, 128, 0, 16, bf, False) == "split"    # jamba
     assert instance(MAX_GROUP, 512, 512, 64, 16, bf, True) == "tiled"
     assert instance(4, 128, 128, 0, 16, bf, False) == "split"
     assert instance(4, 48, 48, 16, 8, bf, True) == "split"

@@ -12,8 +12,9 @@ failure:
    and stack, the compiler's warnings and advisories, the dynamic shared
    memory of the flash and paged-decode blocks, and whether the flash
    library's SASS holds HGMMA (tensor-core) instructions; fail if an
-   instance of ``flash_fwd_tc_kernel`` or ``paged_wide_kernel`` spills or
-   ptxas serializes its wgmma (advisory C7512), or if their libraries'
+   instance of ``flash_fwd_tc_kernel``, ``paged_wide_kernel`` or
+   ``paged_mla_kernel`` spills or ptxas serializes its wgmma (advisory
+   C7512), or if their libraries'
    ptxas report (kept beside a library built by an earlier process) is
    missing; the rest informational;
 2. hold the paged-decode kernel against its plain PyTorch version and
@@ -24,7 +25,9 @@ failure:
    order than the plain version's), and check that -1 table columns
    (2 and 9 appended, inside a split and as whole empty splits) are
    exactly neutral and idle slots exactly zero.  2b holds the head-tiled
-   instances at deepseek-v3's MLA shape; 2c the wide-head instance (bf16)
+   instances at deepseek-v3's MLA shape (the MLA instance, wgmma over a
+   TMA page ring, against its own split mirror too); 2c the wide-head
+   instance (bf16)
    and the split instance (f32) at gemma3-12b's (16 q / 8 kv heads of
    256), each checked to have run: a wrapped 64-column ring
    with window 1024 whose oldest positions lie below the window, and a
@@ -252,7 +255,7 @@ failure:
    checkout (exit 0 required; files scanned, new / baselined /
    suppressed counts and its wall time printed); 18b holds every
    ``extern "C"`` function that the checker's KRN001 parses from
-   ``csrc/*.cu`` (16 over 5 sources) to the built libraries: the
+   ``csrc/*.cu`` (17 over 5 sources) to the built libraries: the
    functions each wrapper binds are exactly its source's, each is a
    symbol of the built library, and each live ctypes binding's
    ``argtypes`` / ``restype`` match the declaration in count and width;
@@ -924,6 +927,8 @@ def phase_kernel_times(fwd, ref, Hq, model):
 # both K and V; scale (qk_nope_dim + qk_rope_dim) ** -0.5
 MLA_HQ, MLA_D, MLA_DE = 128, 512, 64
 MLA_SCALE = (128 + 64) ** -0.5
+# the kernels one call of the MLA instance launches: split kernel, merge
+MLA_KERNELS = ("paged_mla_kernel", "paged_merge_kernel")
 
 
 def mla_case(used, dtype, seed=0, N=None, page=16):
@@ -946,29 +951,51 @@ def mla_decode_case(dtype, seed=0):
 
 def phase_mla_vs_plain(fwd, ref):
     """The kernel at MLA's shape (G = 128, D = Dv = 512, De = 64, k is v)
-    against the sequential plain version and the split-K mirror, with 1,
-    3 and all 64 columns used per row: the tensor-core instance (bf16,
-    16-row pages: the main path's) and the CUDA-core head-tiled instance
-    (float32; and bf16 with 8-row pages, which the tensor-core instance
-    does not take); -1 columns appended leave the output bit for bit; an
-    idle slot outputs exact zeros and leaves the other rows' bits."""
-    from repro_torch.kernels.ref import paged_attention_split_ref
+    against the sequential plain version and the split-K mirror of the
+    instance that ran, with 1, 3 and all 64 columns used per row: the MLA
+    instance (bf16, 16-row pages: the main path's; its mirror takes
+    ``MLA_PAGES_PER_SPLIT`` columns a split and rounds P to bf16), in
+    both of the cases the tensor cores
+    see in bf16 (pools of random rows, and pools whose rows repeat one
+    page, so many scores tie), and the CUDA-core head-tiled instance
+    (float32; and bf16 with 8-row pages, which the MLA instance does not
+    take; the split kernel's mirror); each case's launch is counted by the
+    instance it names; -1 columns appended leave the output bit for bit;
+    an idle slot outputs exact zeros and leaves the other rows' bits."""
+    from repro_torch.kernels.ref import (MLA_PAGES_PER_SPLIT,
+                                         paged_attention_split_ref)
     worst = {}
-    for dname, dtype, page, inst in (
-            ("bfloat16", torch.bfloat16, 16, "tensor cores"),
-            ("bfloat16", torch.bfloat16, 8, "CUDA cores"),
-            ("float32", torch.float32, 16, "CUDA cores")):
+    for dname, dtype, page, inst, tied in (
+            ("bfloat16", torch.bfloat16, 16, "mla", False),
+            ("bfloat16", torch.bfloat16, 16, "mla", True),
+            ("bfloat16", torch.bfloat16, 8, "tiled", False),
+            ("float32", torch.float32, 16, "tiled", False)):
         tol = TOL[dname]
-        key = f"{dname}, page {page}, {inst}"
+        key = (f"{dname}, page {page}, "
+               + ("MLA instance" if inst == "mla" else "CUDA cores")
+               + (", tied rows" if tied else ""))
+        split_kw = (dict(pages_per_split=MLA_PAGES_PER_SPLIT, round_p=True)
+                    if inst == "mla" else {})
+
+        def mirror(*a, **kw):
+            return paged_attention_split_ref(*a, **kw, **split_kw)
 
         def kern(c):
-            return run_kernel(fwd, c, scale=MLA_SCALE)
+            before = fwd.instance_launches[inst]
+            out = run_kernel(fwd, c, scale=MLA_SCALE)
+            if fwd.instance_launches[inst] != before + 1:
+                fail(f"MLA {key}: the call did not run the {inst} instance")
+            return out
         for used in (1, 3, 64):
             c = mla_case(used, dtype, seed=used, page=page)
+            if tied:                     # every page a copy of one page
+                src = c["table"][0, 0].item()
+                for name in ("k", "k_extra"):
+                    c[name][:] = c[name][src]
+                c["v"] = c["k"]
             out = kern(c)
             torch.cuda.synchronize()
-            for what, plain in (("plain", ref),
-                                ("split-K mirror", paged_attention_split_ref)):
+            for what, plain in (("plain", ref), ("split-K mirror", mirror)):
                 exp = run_kernel(plain, c, scale=MLA_SCALE)
                 err = (out.float() - exp.float()).abs().max().item()
                 scale = max(1.0, exp.float().abs().max().item())
@@ -995,8 +1022,9 @@ def phase_mla_vs_plain(fwd, ref):
         print(f"kernel vs plain at MLA's shape [{key}] (B=8, Hq=128, "
               f"Hkv=1, D=Dv=512, De=64, k is v; 1, 3 and 64 columns "
               f"used): max abs err {worst[key]:.3e} against the plain "
-              f"version and the split-K mirror (tol {tol} of the scale); -1 "
-              f"columns neutral bit for bit, idle slots zero")
+              f"version and the {inst} instance's split-K mirror (tol "
+              f"{tol} of the scale); -1 columns neutral bit for bit, idle "
+              f"slots zero")
     return worst
 
 
@@ -1014,7 +1042,7 @@ def sdpa_backend(fn) -> str:
 
 
 def phase_mla_kernel_times(fwd, ref):
-    """The head-tiled instance at deepseek-v3-671b's served decode shape,
+    """The MLA instance at deepseek-v3-671b's served decode shape,
     by device time, beside its bounds (bytes; operations on the tensor
     cores, the card's least time; operations on the CUDA cores, the floor
     of this instance's design), its plain version and
@@ -1033,9 +1061,9 @@ def phase_mla_kernel_times(fwd, ref):
     max_err = (out.float() - exp.float()).abs().max().item()
     for _ in range(3):
         run_kernel(fwd, c, **kw)
-    # the tensor-core split kernel and the merge kernel
+    # the MLA split kernel and the merge kernel
     ms = device_ms(lambda i: run_kernel(fwd, cases[i % 6], **kw), 100,
-                   ("paged_mma_kernel", "paged_merge_kernel"))
+                   MLA_KERNELS)
     call_ms = event_ms(lambda i: run_kernel(fwd, cases[i % 6], **kw), 100)
     plain_ms = event_ms(lambda i: run_kernel(ref, cases[i % 6], **kw), 3)
 
@@ -1079,7 +1107,7 @@ def phase_mla_kernel_times(fwd, ref):
     bound_ms = max(t_bytes, t_tc)
     print(f"paged_attention at deepseek-v3-671b's MLA decode shape (B=8, "
           f"Hq=128, Hkv=1, D=Dv=512, De=64, page 16, 64 columns, {cols} "
-          f"allocated, k is v): tensor-core instance {ms * 1e3:.2f} us of "
+          f"allocated, k is v): MLA instance {ms * 1e3:.2f} us of "
           f"device time ({call_ms * 1e3:.2f} us per call back to back); "
           f"bound "
           f"{bound_ms * 1e3:.2f} us (bytes {byts / 1e6:.2f} MB = "
@@ -2209,10 +2237,15 @@ def phase_serve_deepseek(paged_fwd, kernels):
     if launches != st["decode_calls"] * cfg.n_layers:
         fail(f"paged_attention launches {launches} != decode_calls "
              f"{st['decode_calls']} x {cfg.n_layers}")
+    mla = paged_fwd.instance_launches["mla"]
+    if mla != launches:
+        fail(f"{launches - mla} of deepseek's {launches} paged-decode "
+             f"launches did not run the MLA instance")
     print(f"served 16 requests x 32 tokens in {wall:.2f}s: "
           f"{st['prefill_calls']} prefill calls, {st['decode_calls']} decode "
           f"ticks, {st['shared_pages']} shared pages; paged_attention "
-          f"launches {launches} = {st['decode_calls']} x {cfg.n_layers}")
+          f"launches {launches} = {st['decode_calls']} x {cfg.n_layers}, all "
+          f"{mla} through the MLA instance (paged_mla_kernel)")
     timing = serving_times(rec, wall)
 
     # a served state: 8 new requests admitted through the kernel path,
@@ -4057,7 +4090,8 @@ def phase_dryrun_vs_real(paged_fwd, card: str):
 # advisory C7512) and no spilled bytes, by the source that holds them:
 # phase 1 fails otherwise
 STRICT_KERNELS = {"flash_fwd_tc_kernel": "flash_attention",
-                  "paged_wide_kernel": "paged_attention"}
+                  "paged_wide_kernel": "paged_attention",
+                  "paged_mla_kernel": "paged_attention"}
 
 
 def print_build_report(build, libs) -> None:
@@ -4104,9 +4138,10 @@ def print_build_report(build, libs) -> None:
           f"{PA.smem_bytes('split', 4, 128, 128, 0, 16, 2)} / "
           f"{PA.smem_bytes('split', 8, 128, 128, 0, 16, 2)} B dynamic smem "
           f"per block at G = 4 / 8, D = 128, page 16, bf16; at MLA's G = "
-          f"128, D = Dv = 512, De = 64, k is v: tensor-core instance "
-          f"({PA.MMA_HEADS} heads a block) "
-          f"{PA.smem_bytes('mma', 128, 512, 512, 64, 16, 2, True)} B, "
+          f"128, D = Dv = 512, De = 64, k is v: MLA instance "
+          f"({PA.MLA_HEADS} heads a block, {PA.MLA_PAGES_PER_SPLIT} columns "
+          f"a split) "
+          f"{PA.smem_bytes('mla', 128, 512, 512, 64, 16, 2, True)} B, "
           f"CUDA-core instance ({PA.TILE_HEADS} heads) "
           f"{PA.smem_bytes('tiled', 128, 512, 512, 64, 16, 2, True)} / "
           f"{PA.smem_bytes('tiled', 128, 512, 512, 64, 16, 4, True)} B in "
@@ -4388,7 +4423,7 @@ def phase_checker(card: str) -> dict:
     """18a runs ``python -m repro_torch.analysis --strict --format json``
     on this checkout: it must exit 0.  18b holds the five built libraries
     to the ``extern "C"`` declarations KRN001 parses from ``csrc/*.cu``
-    (16 functions): after each wrapper's ``_lib()`` has typed its
+    (17 functions): after each wrapper's ``_lib()`` has typed its
     bindings, the functions it bound are exactly the parsed ones, each is
     a symbol of the built library, and each one's live ``argtypes`` /
     ``restype`` have the parsed C signature's count and widths (the
@@ -4647,7 +4682,8 @@ def main() -> int:
                              launches=jamba_launches["paged_attention"]),
                     "deepseek-v3-671b MLA decode B=8 Hq=128 Hkv=1 "
                     "D=Dv=512 De=64, k is v":
-                        dict(pa_mla, launches=ds_launches),
+                        dict(pa_mla, launches=ds_launches,
+                             instance="mla: " + " + ".join(MLA_KERNELS)),
                     # 40 of gemma3's 48 layers read the ring, 8 the table
                     "gemma3-12b ring decode B=8 Hq=16 Hkv=8 D=256, 64 "
                     "columns, window 1024":

@@ -117,35 +117,77 @@
 // Dv) query floats and R rows of K and V a block (at MLA's shape the query
 // alone is 295 KB, over the 227 KB a block may use), and every thread
 // loops over all G heads.  Two head-tiled instances take such shapes:
-// * `paged_mma_kernel`, on the tensor cores (bf16, K is V, 16-row pages):
-//   grid (B * Hkv * G / 64, n_splits), the same fixed splits of
-//   PAGES_PER_SPLIT columns, a block of 4 warps takes 64 query heads, a warp
-//   16 (mma.sync m16n8k16's M).  The tile's q rows and the split's 64 K rows
-//   ([latent | rope], one 16-byte unit of padding a row, so ldmatrix's 8
-//   rows hit 8 bank groups) are staged once by cp.async: 148 KB.  Scores
-//   take 36 k-steps of 16, the softmax runs on the score registers (quad
-//   shuffles), P goes to bf16 straight from them as the A operand of P.V,
-//   and V is the staged K rows' first Dv columns, read by transposed
-//   ldmatrix, 128 columns at a time.  Rounding P to bf16 moves the output
-//   by about 2^-9 of its scale;
+// * `paged_mla_kernel`, the MLA instance, replacing for this shape what
+//   the TPU kernel `paged_attention_fwd` (src/repro/kernels/paged_attention.py
+//   :201) computes with its second contraction: DeepSeek-V3's widths (bf16,
+//   K is V, 16-row pages, D = Dv = 512, De <= 64, G a multiple of 64).
+//   Bound at the served decode shape (B = 8, 2-40 pages a slot; chip_smoke
+//   phase 10b): the 5.80 MB it must move, 1.73 us at 3.35 TB/s; its 0.86
+//   GFLOP take 0.87 us on the tensor cores.  What held the mma.sync
+//   instance it replaces (22.19 us of split kernel + 7.37 of merge there)
+//   and what this design does about each:
+//   1. Fixed 4-page splits that each staged the whole 74 KB q tile: a split
+//      is now MLA_PAGES_PER_SPLIT = 8 table columns (boundaries still a
+//      function of the column index alone), q is staged once per 8 pages,
+//      and a slot of 40 pages is 5 blocks a head tile, not 10.  8 is the
+//      most one block can hold (q 72 KB + 8 pages of 18 KB); with 4 a split
+//      the partials double, with 16 one block's serial work does (PERF.md
+//      has the lengths' timings from a first build).
+//   2. A serial chain in one 150 KB block an SM, nothing in flight during
+//      compute: the block is a producer warpgroup (its registers handed to
+//      the consumers by `setmaxnreg`) and two consumer warpgroups.  The
+//      producer issues q (9 TMA boxes of 64 heads x 64 columns) before it
+//      has the table, then its four warps' lane 0 copy two pages each (a
+//      page: 8 boxes of 16 latent rows x 64 columns and one of the rope
+//      rows, on the page slot's mbarrier), so the split's 8 slots are all
+//      in flight at once (four warps issue the 72 boxes faster than one),
+//      and reads the positions for the row masks meanwhile.  Each consumer
+//      warpgroup starts on its four pages as soon as they land; the
+//      exponentials of the split's second half run while the first half's
+//      P.V products are on the tensor cores.  -1 columns are never read;
+//      their slots are zero-filled so the P.V steps need no branch.
+//   3. f32 partials larger than the input: with 8-page splits the scratch
+//      holds about half as many partials (at the served shape 56 of 131.6
+//      KB, 7.4 MB, against 102 with 4-page splits, 13.4 MB).  A block
+//      stores its partial by TMA from shared memory; the store takes 3 us,
+//      bound by what one SM writes (a half store takes half).
+//      `paged_merge_kernel`, a block per query head, merges them in split
+//      order, each chunk's (m_s, l_s) read in one round by a warp (a merge
+//      in the last split's block, which reads the others' partials through
+//      one SM, took 144 us in a first build of the mma.sync instance).
+//   4. No Hopper tensor-core path: S = [q | q_rope] . [K | K_rope]^T runs as
+//      36 k16 steps of wgmma m64n64k16 with both operands in shared memory
+//      (128-byte swizzle, the layout TMA writes); warpgroup w scores the
+//      split's pages w, w + 2, w + 4, w + 6 (the two warpgroups' row maxima
+//      meet through shared memory).  Scale, softcap, mask and the split's
+//      softmax (one max a split, IEEE expf) run on the score registers; P
+//      goes to bf16 (moving the output by about 2^-9 of its scale) into
+//      shared memory over q, and acc += P . V is 8 k16 steps of wgmma
+//      m64n256k16, A = P and B = the pages' latent rows read MN-major (no
+//      transposed copy), both from shared memory.  The 64 x 512 f32
+//      accumulator is split by columns: each warpgroup holds 64 x 256, 128
+//      registers a thread (224 after `setmaxnreg`, 0 spilled).
+//   Shared memory: q 72 KB, the 8 page slots 144 KB, about 218 KB.  Where a
+//   block's time goes, phase by phase: `scripts/mla_ablate.py --timeline`.
 // * `paged_tiled_kernel`, on the CUDA cores (float32, which the tensor
-//   cores would round, and shapes the tensor-core instance does not take):
-//   16 heads a block, q staged as f32, a thread per row and 8 heads for the
-//   scores, per 4 columns of V and all 16 heads for P.V, rows in order; K
-//   and V staged once when they are one tensor;
+//   cores would round, and shapes the MLA instance does not take): 16 heads
+//   a block, q staged as f32, a thread per row and 8 heads for the scores,
+//   per 4 columns of V and all 16 heads for P.V, rows in order; K and V
+//   staged once when they are one tensor; the split kernel's PAGES_PER_SPLIT
+//   columns a split and its one max a split;
 // * both write each live split's partial per head tile (16 x (Dv + 2) or
-//   64 x (Dv + 2) floats: at B = 8 and 64 columns 33.7 MB at most) and
-//   leave the merge to `paged_merge_kernel`, a block per query head, which
-//   reads them in split order as the last block above does.  A merge in the
-//   last split block, as above, read up to 2 MB of partials from one block
-//   per head tile: most of the kernel's time at this shape.
-// expf stays IEEE-accurate here too.  Per head, the split's max, exp and
-// sum and the ordered merge are those above, so -1 columns stay neutral bit
-// for bit and idle slots output exact zeros.
+//   64 x (Dv + 2) floats) and leave the merge to `paged_merge_kernel`, a
+//   block per query head, which reads them in split order as the last block
+//   above does.
+// expf stays IEEE-accurate here too.  Per head, the splits' partials (m_s,
+// l_s, acc_s) and the ordered merge are those above (the MLA instance's
+// m_s and l_s come from its page-by-page softmax), so -1 columns stay
+// neutral bit for bit and idle slots output exact zeros.
 //
 // The C entry points return the cudaError_t of the launch (0 = success);
 // the Python wrapper raises on anything else.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -299,14 +341,15 @@ __device__ __forceinline__ void unpack(const uint4& w, float (&f)[4]) {
   f[2] = __uint_as_float(w.z), f[3] = __uint_as_float(w.w);
 }
 
-// whether split s of a table row holds a column (block ids outside the pool
-// count as -1, as in the kernel)
+// whether split s of a table row, of PPS columns a split, holds a column
+// (block ids outside the pool count as -1, as in the kernel)
+template <int PPS = PAGES_PER_SPLIT>
 __device__ __forceinline__ bool split_live(const int32_t* row, int n_cols,
                                            int num_blocks, int s) {
   bool live = false;
 #pragma unroll
-  for (int j = 0; j < PAGES_PER_SPLIT; ++j) {
-    const int c = s * PAGES_PER_SPLIT + j;
+  for (int j = 0; j < PPS; ++j) {
+    const int c = s * PPS + j;
     if (c < n_cols) {
       const int x = row[c];
       live = live || (x >= 0 && x < num_blocks);
@@ -317,12 +360,14 @@ __device__ __forceinline__ bool split_live(const int32_t* row, int n_cols,
 
 // By warp 0: the live splits of chunk [s0, s0 + 32) of a table row, in
 // split order, into `lst`; returns their number (on warp 0's lanes)
+template <int PPS = PAGES_PER_SPLIT>
 __device__ __forceinline__ int list_live(const int32_t* row, int n_cols,
                                          int num_blocks, int s0, int* lst) {
   const int lane = threadIdx.x & 31;
-  const int n_splits = (n_cols + PAGES_PER_SPLIT - 1) / PAGES_PER_SPLIT;
+  const int n_splits = (n_cols + PPS - 1) / PPS;
   const int s = s0 + lane;
-  const bool live = s < n_splits && split_live(row, n_cols, num_blocks, s);
+  const bool live =
+      s < n_splits && split_live<PPS>(row, n_cols, num_blocks, s);
   const unsigned mask = __ballot_sync(0xffffffffu, live);
   if (live) lst[__popc(mask & ((1u << lane) - 1))] = s;
   return __popc(mask);
@@ -1194,8 +1239,6 @@ int launch_wide(const void* q, const void* k, const void* v, const void* pos,
 // ---------------------------------------------------------------------------
 
 constexpr int TILE_G = 16;  // query heads a block of the CUDA-core instance
-constexpr int MMA_TH = 64;  // of the tensor-core instance: 4 warps x 16
-constexpr int MMA_R = 64;   // rows a split of it: PAGES_PER_SPLIT pages of 16
 
 // elements of one staged K row: K, K_extra, then one 16-byte unit of padding
 __host__ __device__ inline int tiled_kstride(int D, int De, int isz) {
@@ -1214,19 +1257,6 @@ struct TiledSmem {
     sc = round16(vs + (kv_same ? 0 : (size_t)isz * R * Dv));  // R x Dv
     ok = sc + sizeof(float) * R * TILE_G;      // scores, then p: R x TILE_G
     total = ok + sizeof(int) * R;
-  }
-};
-
-// ... and of one tensor-core block's: q and K rows in bf16, D + De
-// elements padded by 8 (one 16-byte unit)
-struct MmaSmem {
-  size_t qs, ks, ok, total;
-  __host__ __device__ MmaSmem(int D, int De) {
-    const size_t KS = (size_t)D + De + 8;
-    qs = 0;                                    // MMA_TH x KS
-    ks = round16(qs + 2 * MMA_TH * KS);        // MMA_R x KS
-    ok = round16(ks + 2 * MMA_R * KS);
-    total = ok + sizeof(int) * MMA_R;
   }
 };
 
@@ -1452,31 +1482,169 @@ __global__ void __launch_bounds__(kThreads, 1) paged_tiled_kernel(
   }
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+// ---------------------------------------------------------------------------
+// The MLA instance (see the header): bf16, k is v, 16-row pages, D = Dv =
+// MLA_DV, 8 <= De <= 64, G a multiple of MLA_TH.  wgmma over a split's
+// pages staged by TMA; its partials go to paged_merge_kernel.
+// ---------------------------------------------------------------------------
+
+constexpr int MLA_TH = 64;                // query heads a block: wgmma's M
+constexpr int MLA_PAGES_PER_SPLIT = 8;    // table columns a split
+constexpr int MLA_PAGE = 16;              // rows a page: one k16 step of P.V
+constexpr int MLA_DV = 512;               // D = Dv (kv_lora_rank)
+constexpr int MLA_NB = MLA_DV / 64 + 1;   // 128-byte column blocks of a row
+// 2 consumer warpgroups + a producer warpgroup, whose registers
+// `setmaxnreg` hands to the consumers: 128 x 56 + 256 x 224 = 64,512 of the
+// SM's 65,536 (the launch bound gives each of the 384 threads 168, and 128
+// accumulators a thread do not fit beside the rest)
+constexpr int MLA_THREADS = 384;
+constexpr int MLA_REGS_PRODUCER = 56;
+constexpr int MLA_REGS_CONSUMER = 224;
+constexpr int MLA_NW = MLA_DV / 2;        // V columns a consumer warpgroup
+constexpr int MLA_WG_PAGES = MLA_PAGES_PER_SPLIT / 2;  // a warpgroup's pages
+constexpr int MLA_WG_ROWS = MLA_WG_PAGES * MLA_PAGE;   // its score columns
+static_assert(MLA_WG_ROWS == 64, "a warpgroup's scores are one m64n64 tile");
+
+// The slot of the split's k-th live page: warpgroup k % 2 scores it, as
+// its (k / 2)-th page, so each warpgroup's pages lie side by side
+__device__ __forceinline__ int mla_slot(int k) {
+  return (k % 2) * MLA_WG_PAGES + k / 2;
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+// Shared memory of one MLA block, in bytes from a 1024-byte aligned base:
+// q as MLA_NB column blocks of MLA_TH rows x 128 bytes (8 of the latent,
+// one of the rope term; once the scores are done, its first two blocks hold
+// P, a warpgroup's 64 heads x 64 rows each, in the same layout); the page
+// slots as MLA_NB column blocks of MLA_PAGES_PER_SPLIT slots x 16 rows x 128
+// bytes (slot s of column block c at c x SLOTS_CB + s x SLOT); the row
+// masks of the split's rows, a bit a row; each warpgroup's row maxima and
+// row sums; the
+// live pages' block ids and their count; the mbarriers (q, a slot each).
+struct MlaLayout {
+  static constexpr int Q_CB = MLA_TH * 128;
+  static constexpr int SLOT = MLA_PAGE * 128;
+  static constexpr int SLOTS_CB = MLA_PAGES_PER_SPLIT * SLOT;
+  static constexpr int SLOTS_OFF = MLA_NB * Q_CB;
+  static constexpr int OK_OFF = SLOTS_OFF + MLA_NB * SLOTS_CB;
+  static constexpr int ROW_OFF = OK_OFF + MLA_PAGES_PER_SPLIT * MLA_PAGE / 8;
+  static constexpr int LST_OFF = ROW_OFF + 4 * 4 * MLA_TH;
+  static constexpr int BAR_OFF = (LST_OFF + 4 * (MLA_PAGES_PER_SPLIT + 1) + 7) & ~7;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + MLA_PAGES_PER_SPLIT) + 1024;
+  static_assert(BYTES <= 232448, "over the 227 KB a block may use");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Returns once the phase of parity `parity` of the barrier has completed.
+// A trap inside a loop of the consumers' code keeps ptxas from giving it
+// the budget `setmaxnreg.inc` raised, so a wait that outlasts 2^32 cycles
+// gives up instead and marks the thread `dead`, whose later waits return
+// at once; a marked thread traps after its loop, so the launch fails (a
+// launch error, not a hung card) and no result is written.
+__device__ __forceinline__ void mbar_wait_bounded(uint32_t bar,
+                                                  uint32_t parity,
+                                                  bool& dead) {
+  uint32_t done;
+  const long long t0 = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done && !dead && !(dead = clock64() - t0 > (1ll << 32)));
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// makes this thread's generic-proxy writes to shared memory visible to the
+// tensor cores' (async-proxy) reads that follow
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (3, 4 or 8) of the 256 consumer threads (0 is
+// __syncthreads, 1 the producer's hand-over, 2 its row masks, 5 the
+// producer's own, 6 and 7 each consumer warpgroup's own)
+__device__ __forceinline__ void consumers_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// wgmma shared-memory descriptor: 128-byte swizzle, start address, leading
+// and stride byte offsets (all in bytes here, stored in 16-byte units)
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -1484,195 +1652,395 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The tensor-core split kernel: bf16, K is V, 16-row pages, MMA_TH heads a
-// block, a warp per 16 heads.
-template <int TH>
-__global__ void __launch_bounds__(kThreads, 1) paged_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const int32_t* __restrict__ pos, const int32_t* __restrict__ table,
-    const int32_t* __restrict__ q_pos,
-    const __nv_bfloat16* __restrict__ q_extra,
-    const __nv_bfloat16* __restrict__ k_extra, float* __restrict__ part,
-    int Hkv, int G, int D, int Dv, int De, int n_cols, int num_blocks,
-    float scale, int window, float softcap) {
-  static_assert(TH == 16 * (kThreads / 32), "a warp per 16 heads");
-  using bf16 = __nv_bfloat16;
-  constexpr int page = MMA_R / PAGES_PER_SPLIT;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int sblk[PAGES_PER_SPLIT];
-  const MmaSmem L(D, De);
-  bf16* qs = reinterpret_cast<bf16*>(smem + L.qs);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L.ks);
-  int* ok = reinterpret_cast<int*>(smem + L.ok);
+// d (64 x 64, f32) = [d +] a (64 x 16, smem) . b (64 x 16, smem)^T
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
-  const int QW = D + De, KS = D + De + 8;
-  const int n_tiles = G / TH;
+// d (64 x 256, f32) += a (64 x 16, smem) . b (16 x 256, smem, MN-major)
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The MLA split kernel.  Block (head tile, split) of grid (B * Hkv * G /
+// MLA_TH, n_splits).  Warpgroup 2 produces: thread 256 sets up the
+// mbarriers and issues the q tile's 9 TMA boxes, warp 9 reads the split's
+// table columns meanwhile, then lane 0 of each producer warp w issues the
+// boxes of live pages w and w + 4 on their slots' mbarriers, each thread
+// reads one split row's position for the row masks, and the slots of the
+// split's columns that hold no live page are zero-filled.  So the whole
+// split is in flight at once; -1 columns are never read.  Warpgroups 0 and
+// 1 consume:
+//   S = [q | q_rope] . [K | K_rope]^T: warpgroup w scores the split's pages
+//     w, w + 2, w + 4, w + 6 (64 rows, one m64n64 tile) as soon as they
+//     land, MLA_NB x 4 k16 steps with both operands in shared memory;
+//   scale, softcap and mask on the registers; the split's row max M (the
+//     two warpgroups' maxima meet through shared memory), p = e^(s - M),
+//     each warpgroup's row sums; P in bf16 into shared memory over q (free
+//     once both have scored), in the layout wgmma's A operand reads, pages
+//     0-3 first;
+//   acc += P . V over the split's 8 pages (a zero slot adds exact zeros),
+//     warpgroup w on V columns w x MLA_NW .. + MLA_NW (m64n256k16, both
+//     operands in shared memory, V the pages' latent rows read MN-major),
+//     pages 0-3 on the tensor cores while P of pages 4-7 is computed.
+// Then the split's partial: acc (staged through shared memory and stored by
+// TMA), M, and the two warpgroups' row sums added.
+__global__ void __launch_bounds__(MLA_THREADS, 1) paged_mla_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_qe,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_ke,
+    const __grid_constant__ CUtensorMap tm_part,
+    const int32_t* __restrict__ pos, const int32_t* __restrict__ table,
+    const int32_t* __restrict__ q_pos, float* __restrict__ part, int Hkv,
+    int G, int n_cols, int num_blocks, float scale, int window,
+    float softcap) {
+  using L = MlaLayout;
+  constexpr int PPS = MLA_PAGES_PER_SPLIT;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sbase = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (sbase - raw);   // generic view
+  const uint32_t sq = sbase, sslots = sbase + L::SLOTS_OFF;
+  uint32_t* okw = reinterpret_cast<uint32_t*>(gbase + L::OK_OFF);
+  float* rowmax = reinterpret_cast<float*>(gbase + L::ROW_OFF);  // [2][64]
+  float* rowsum = rowmax + 2 * MLA_TH;                            // [2][64]
+  int* lst = reinterpret_cast<int*>(gbase + L::LST_OFF);   // [PPS], count
+  const uint32_t bar_q = sbase + L::BAR_OFF;
+  const uint32_t bar_page = bar_q + 8;                     // a slot each
+
+  const int n_tiles = G / MLA_TH;
   const int ct = blockIdx.x;                 // (slot, kv head, head tile)
   const int bh = ct / n_tiles, tile = ct % n_tiles;
   const int b = bh / Hkv, h = bh % Hkv;
   const int split = blockIdx.y, n_splits = gridDim.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t head0 = (size_t)b * Hkv * G + (size_t)h * G + (size_t)tile * TH;
-  const size_t part_stride = part_floats(TH, Dv);
-  const int PM = TH * Dv, PL = TH * Dv + TH;
-  float* my_part = part + ((size_t)ct * n_splits + split) * part_stride;
-
+  const int tid = threadIdx.x;
+  const int head0 = b * Hkv * G + h * G + tile * MLA_TH;  // q row of head 0
   const int qp = q_pos[b];
-  if (!tiled_split_start(table + (size_t)b * n_cols, n_cols, num_blocks,
-                         split, qp, sblk))
-    return;  // an idle slot or a split with no column: nothing to merge
+  if (qp < 0) return;                        // an idle slot: nothing to merge
 
-  // the tile's query rows [q | q_extra] and the split's rows [K | K_extra],
-  // 16 bytes a cp.async; a -1 column's rows are zeros (its page is never
-  // read), so the products over them are exact zeros
+  // warp-uniform for the compiler: setmaxnreg sits in warpgroup-uniform
+  // branches that never reconverge
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wg == 2) {
+    // ---- producer: warpgroup 2 -------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        MLA_REGS_PRODUCER));
+    const int pt = tid - 256, pw = pt >> 5;
+    if (pt == 0) {
+      // the barriers, then q: it does not depend on the table
+      mbar_init(bar_q, 1);
+      for (int i = 0; i < PPS; ++i) mbar_init(bar_page + 8 * i, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      mbar_expect_tx(bar_q, MLA_NB * L::Q_CB);
+      for (int cb = 0; cb < MLA_NB - 1; ++cb)
+        tma_load_2d(sq + cb * L::Q_CB, &tm_q, bar_q, 64 * cb, head0);
+      tma_load_2d(sq + (MLA_NB - 1) * L::Q_CB, &tm_qe, bar_q, 0, head0);
+    }
+    if (pw == 1) {                           // warp 9: the live columns
+      const int lane = pt & 31, c = split * PPS + lane;
+      int x = -1;
+      if (lane < PPS && c < n_cols) x = table[(size_t)b * n_cols + c];
+      const bool live = x >= 0 && x < num_blocks;
+      const unsigned mask = __ballot_sync(0xffffffffu, live);
+      if (live) lst[__popc(mask & ((1u << lane) - 1))] = x;
+      if (lane == 0) lst[PPS] = __popc(mask);
+    }
+    asm volatile("bar.sync 5, 128;\n" ::: "memory");
+    const int n_live = lst[PPS];
+    // the live list and the barriers are set: hand over to the consumers
+    asm volatile("bar.arrive 1, %0;\n" ::"n"(MLA_THREADS) : "memory");
+    if (n_live == 0) {              // no live column: let q land, and leave
+      if (pt == 0) {
+        bool gave_up = false;
+        mbar_wait_bounded(bar_q, 0, gave_up);
+      }
+      return;
+    }
+    // thread pt reads the position of split row pt (row pt % 16 of live
+    // page pt / 16) while lane 0 of producer warp w copies pages w and w +
+    // 4 (8 boxes of 16 latent rows x 64 columns and one of the rope rows
+    // each, 18 KB, on the slot's barrier)
+    const int prow = pt < n_live * MLA_PAGE
+                         ? pos[(size_t)lst[pt / MLA_PAGE] * MLA_PAGE +
+                               pt % MLA_PAGE]
+                         : -1;
+    if ((pt & 31) == 0) {
+      for (int kp = pw; kp < n_live; kp += 4) {
+        const int sl = mla_slot(kp), row = lst[kp] * MLA_PAGE;
+        const uint32_t full = bar_page + 8 * sl, dst = sslots + sl * L::SLOT;
+        mbar_expect_tx(full, MLA_NB * L::SLOT);
+        for (int cb = 0; cb < MLA_NB - 1; ++cb)
+          tma_load_3d(dst + cb * L::SLOTS_CB, &tm_k, full, 64 * cb, h, row);
+        tma_load_3d(dst + (MLA_NB - 1) * L::SLOTS_CB, &tm_ke, full, 0, h,
+                    row);
+      }
+    }
+    // the row masks of the split's 128 rows as 4 words (bit r % 32 of word
+    // r / 32; rows of no live page masked), for the consumers' softmax
+    const bool ok = prow >= 0 && prow <= qp && (window <= 0 || prow > qp - window);
+    const unsigned okbits = __ballot_sync(0xffffffffu, ok);
+    if ((pt & 31) == 0) okw[pw] = okbits;
+    asm volatile("bar.arrive 2, %0;\n" ::"n"(MLA_THREADS) : "memory");
+    // the slots of the split's columns that hold no live page: zeros
+    if (n_live < PPS) {
+      for (int kp = n_live; kp < PPS; ++kp) {
+        const int off = L::SLOTS_OFF + mla_slot(kp) * L::SLOT;
+        for (int x = pt; x < MLA_NB * MLA_PAGE * 8; x += 128)
+          *reinterpret_cast<uint4*>(gbase + off + (x / 128) * L::SLOTS_CB +
+                                    (x % 128) * 16) = make_uint4(0, 0, 0, 0);
+      }
+      fence_async_smem();
+      asm volatile("bar.sync 5, 128;\n" ::: "memory");
+      if (pt == 0)
+        for (int kp = n_live; kp < PPS; ++kp)
+          mbar_arrive(bar_page + 8 * mla_slot(kp));
+    }
+    return;
+  }
+
+  // ---- consumers -----------------------------------------------------------
+  asm volatile("bar.sync 1, %0;\n" ::"n"(MLA_THREADS) : "memory");
+  const int n_live = lst[PPS];
+  if (n_live == 0) return;                   // no live column: no partial
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      MLA_REGS_CONSUMER));
+  bool dead = false;                  // a bounded wait gave up
+
+  const int t = tid - 128 * wg, warp = t >> 5, lane = t & 31;
+  // this thread's rows (heads) g0 = 16 warp + lane / 4 and g1 = g0 + 8;
+  // its columns 8 i + 2 (lane % 4) + {0, 1} of every 8 (of this
+  // warpgroup's 64 score columns for s, of its MLA_NW V columns for acc)
+  const int col_l = 2 * (lane & 3);
+  const int g0 = 16 * warp + (lane >> 2), g1 = g0 + 8;
+  float s[MLA_WG_ROWS / 2];
+#pragma unroll
+  for (int i = 0; i < MLA_WG_ROWS / 2; ++i) s[i] = 0.f;
+
+  // the scores of this warpgroup's pages, once they and q have landed
+  mbar_wait_bounded(bar_q, 0, dead);
+#pragma unroll
+  for (int p = 0; p < MLA_WG_PAGES; ++p)
+    mbar_wait_bounded(bar_page + 8 * (wg * MLA_WG_PAGES + p), 0, dead);
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < MLA_NB * 4; ++ks) {
+    const uint32_t off = (ks % 4) * 32;
+    wgmma_ss_n64(s, make_desc(sq + (ks / 4) * L::Q_CB + off, 16, 1024),
+                 make_desc(sslots + (ks / 4) * L::SLOTS_CB +
+                               wg * MLA_WG_PAGES * L::SLOT + off,
+                           16, 1024),
+                 ks > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  // scale, softcap, mask (the producer's row masks: score column 8 i +
+  // col_l + e is split row 32 (i / 2) + 16 wg + 8 (i % 2) + col_l + e, bit
+  // 16 wg + col_l + 8 (i % 2) + e of word i / 2); the row maxima over the
+  // quad, then over both warpgroups
+  asm volatile("bar.sync 2, %0;\n" ::"n"(MLA_THREADS) : "memory");
+  uint32_t okb[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) okb[i] = okw[i] >> (16 * wg + col_l);
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int i = 0; i < MLA_WG_ROWS / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok = (okb[i / 2] >> (8 * (i % 2) + (e & 1))) & 1u;
+      float y = s[4 * i + e] * scale;
+      if (softcap > 0.f) y = softcap * tanhf(y / softcap);
+      y = ok ? y : kNegInf;
+      s[4 * i + e] = y;
+      if (e < 2) mx0 = fmaxf(mx0, y); else mx1 = fmaxf(mx1, y);
+    }
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  if ((lane & 3) == 0) {
+    rowmax[wg * MLA_TH + g0] = mx0;
+    rowmax[wg * MLA_TH + g1] = mx1;
+  }
+  consumers_sync(3);                  // both have scored: q is free
+  const float M0 = fmaxf(mx0, rowmax[(wg ^ 1) * MLA_TH + g0]);
+  const float M1 = fmaxf(mx1, rowmax[(wg ^ 1) * MLA_TH + g1]);
+  // p = e^(s - M) (0 where masked), its row sums, and P in bf16 into
+  // column block wg of the q region: 64 heads x 64 rows, 128-byte rows,
+  // 16-byte unit u of row r at unit u ^ (r % 8), as q was.  In two rounds:
+  // P of the split's pages 0-3 (this warpgroup's first two, score columns
+  // 0-31), whose P.V products then run while the exponentials of pages 4-7
+  // (columns 32-63) are computed.  acc = P . V over the split's pages in
+  // order, this warpgroup's MLA_NW columns (m64n256k16)
+  float acc[MLA_NW / 2];
+#pragma unroll
+  for (int i = 0; i < MLA_NW / 2; ++i) acc[i] = 0.f;
+  float sum0 = 0.f, sum1 = 0.f;
+  unsigned char* pw = gbase + wg * L::Q_CB;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int i = 4 * r; i < 4 * r + 4; ++i) {
+      float pv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float y = s[4 * i + e];
+        pv[e] = y > kNegInf ? expf(y - (e < 2 ? M0 : M1)) : 0.f;
+      }
+      sum0 += pv[0] + pv[1];
+      sum1 += pv[2] + pv[3];
+      *reinterpret_cast<uint32_t*>(pw + g0 * 128 + ((i ^ (g0 & 7)) << 4) +
+                                   2 * col_l) = pack_bf16(pv[0], pv[1]);
+      *reinterpret_cast<uint32_t*>(pw + g1 * 128 + ((i ^ (g1 & 7)) << 4) +
+                                   2 * col_l) = pack_bf16(pv[2], pv[3]);
+    }
+    if (r == 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
+      if ((lane & 3) == 0) {
+        rowsum[wg * MLA_TH + g0] = sum0;
+        rowsum[wg * MLA_TH + g1] = sum1;
+      }
+    }
+    fence_async_smem();               // P, for the tensor cores' reads
+    consumers_sync(r == 0 ? 4 : 8);
+    if (r == 0) {
+#pragma unroll
+      for (int p = 0; p < PPS; ++p)          // every slot has landed
+        mbar_wait_bounded(bar_page + 8 * p, 0, dead);
+      fence_regs(acc);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int p = PPS / 2 * r; p < PPS / 2 * (r + 1); ++p)
+      wgmma_ss_n256(acc,
+                    make_desc(sq + (p % 2) * L::Q_CB + (p / 2) * 32, 16, 1024),
+                    make_desc(sslots + (MLA_NW / 64) * wg * L::SLOTS_CB +
+                                  mla_slot(p) * L::SLOT,
+                              L::SLOTS_CB, 1024));
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (dead) asm volatile("trap;");              // a wait gave up
+
+  // the split's partial: this warpgroup's 64 x MLA_NW floats staged over
+  // its own V columns' slots (only its P.V read them) as 8 blocks of 64
+  // rows x 32 floats in the 128-byte swizzle, then stored by TMA (8 boxes)
+  const int part_i = ct * n_splits + split;
   {
-    const int U = QW / 8;
-    for (int x = tid; x < (TH + MMA_R) * U; x += kThreads) {
-      const int r = x / U, e = (x % U) * 8;
-      if (r < TH) {
-        const size_t hq = head0 + r;
-        cp_async16(qs + (size_t)r * KS + e,
-                   e < D ? q + hq * D + e : q_extra + hq * De + (e - D));
-      } else {
-        const int rr = r - TH, bb = sblk[rr / page];
-        bf16* dst = ks + (size_t)rr * KS + e;
-        if (bb < 0) {
-          *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-          continue;
-        }
-        const size_t row = ((size_t)bb * page + rr % page) * Hkv + h;
-        cp_async16(dst,
-                   e < D ? k + row * D + e : k_extra + row * De + (e - D));
-      }
+    const int off = L::SLOTS_OFF + (MLA_NW / 64) * wg * L::SLOTS_CB;
+    unsigned char* st = gbase + off;
+#pragma unroll
+    for (int i = 0; i < MLA_NW / 8; ++i) {
+      const int u = 2 * (i % 4) + (col_l >> 2), half = (col_l >> 1) & 1;
+      unsigned char* blk = st + (i / 4) * (MLA_TH * 128) + 8 * half;
+      *reinterpret_cast<float2*>(blk + g0 * 128 + ((u ^ (g0 & 7)) << 4)) =
+          make_float2(acc[4 * i], acc[4 * i + 1]);
+      *reinterpret_cast<float2*>(blk + g1 * 128 + ((u ^ (g1 & 7)) << 4)) =
+          make_float2(acc[4 * i + 2], acc[4 * i + 3]);
     }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  }
-  for (int r = tid; r < MMA_R; r += kThreads) {
-    const int bb = sblk[r / page];
-    const int p = bb >= 0 ? pos[(size_t)bb * page + r % page] : -1;
-    ok[r] = (p >= 0) && (p <= qp) && (window <= 0 || p > qp - window);
-  }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
-
-  // scores S (this warp's 16 heads x 64 rows) = [q | q_extra] . [K |
-  // K_extra]^T on the tensor cores, (D + De) / 16 steps, then times scale,
-  // softcap and mask.  Lane (g, c4) holds heads g and g + 8 of the warp,
-  // rows 8 nt + 2 c4 + {0, 1} of each of the 8 row tiles
-  const int g = lane >> 2, c4 = lane & 3;
-  float s[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[nt][j] = 0.f;
-  {
-    const bf16* qa =
-        qs + (size_t)(warp * 16 + (lane & 15)) * KS + (lane >> 4) * 8;
-    const bf16* kb = ks + (size_t)((lane >> 4) * 8 + (lane & 7)) * KS +
-                     ((lane >> 3) & 1) * 8;
-#pragma unroll 2
-    for (int kk = 0; kk < QW / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, qa + kk * 16);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bf[4];
-        ldsm_x4(bf, kb + (size_t)np * 16 * KS + kk * 16);
-        mma_bf16(s[2 * np], a, bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
-      }
+    fence_async_smem();
+    asm volatile("bar.sync %0, 128;\n" ::"r"(6 + wg) : "memory");
+    if (t == 0) {
+      for (int j = 0; j < MLA_NW / 32; ++j)
+        tma_store_3d(&tm_part, sbase + off + j * (MLA_TH * 128),
+                     MLA_NW * wg + 32 * j, 0, part_i);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     }
-  }
-  float m0 = kNegInf, m1 = kNegInf;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const bool live = ok[nt * 8 + 2 * c4 + j];
-      float y0 = s[nt][j] * scale, y1 = s[nt][2 + j] * scale;
-      if (softcap > 0.f) {
-        y0 = softcap * tanhf(y0 / softcap);
-        y1 = softcap * tanhf(y1 / softcap);
-      }
-      s[nt][j] = live ? y0 : kNegInf;
-      s[nt][2 + j] = live ? y1 : kNegInf;
-      m0 = fmaxf(m0, s[nt][j]);
-      m1 = fmaxf(m1, s[nt][2 + j]);
-    }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
-  }
-  float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const bool live = ok[nt * 8 + 2 * c4 + j];
-      const float p0 = live ? expf(s[nt][j] - m0) : 0.f;
-      const float p1 = live ? expf(s[nt][2 + j] - m1) : 0.f;
-      s[nt][j] = p0;
-      s[nt][2 + j] = p1;
-      l0 += p0;
-      l1 += p1;
-    }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  if (c4 == 0) {
-    my_part[PM + warp * 16 + g] = m0;
-    my_part[PM + warp * 16 + g + 8] = m1;
-    my_part[PL + warp * 16 + g] = l0;
-    my_part[PL + warp * 16 + g + 8] = l1;
   }
 
-  // acc_s = P . V on the tensor cores: P (bf16) straight from the score
-  // registers as the A operand (two row tiles make one 16-row step, one
-  // page), V = the staged K rows' first Dv columns by transposed ldmatrix,
-  // 128 columns of V at a time; a -1 column's page is skipped
-  uint32_t pa[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-  }
-  const bf16* vb = ks + (size_t)(lane & 15) * KS + (lane >> 4) * 8;
-  for (int n0 = 0; n0 < Dv; n0 += 128) {
-    float acc[16][4];
-#pragma unroll
-    for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[nt][j] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if (sblk[kk] < 0) continue;
-#pragma unroll
-      for (int np = 0; np < 8; ++np) {
-        uint32_t bf[4];
-        ldsm_x4_t(bf, vb + (size_t)kk * 16 * KS + n0 + np * 16);
-        mma_bf16(acc[2 * np], pa[kk], bf[0], bf[1]);
-        mma_bf16(acc[2 * np + 1], pa[kk], bf[2], bf[3]);
-      }
-    }
-    float* r0 = my_part + (size_t)(warp * 16 + g) * Dv + n0 + 2 * c4;
-    float* r1 = r0 + (size_t)8 * Dv;
-#pragma unroll
-    for (int nt = 0; nt < 16; ++nt) {
-      *reinterpret_cast<float2*>(r0 + nt * 8) =
-          make_float2(acc[nt][0], acc[nt][1]);
-      *reinterpret_cast<float2*>(r1 + nt * 8) =
-          make_float2(acc[nt][2], acc[nt][3]);
-    }
+  // the split's m and l
+  float* my_part = part + (size_t)part_i * part_floats(MLA_TH, MLA_DV);
+  if (wg == 0 && (lane & 3) == 0) {
+    const int PM = MLA_TH * MLA_DV, PL = PM + MLA_TH;
+    my_part[PM + g0] = M0;
+    my_part[PM + g1] = M1;
+    my_part[PL + g0] = rowsum[g0] + rowsum[MLA_TH + g0];
+    my_part[PL + g1] = rowsum[g1] + rowsum[MLA_TH + g1];
   }
 }
 
-// The merge of the head-tiled instances, launched after their split kernel:
-// a block per (slot, kv head, query head), a thread per 4 output columns.
+// The merge of the head-tiled instances, launched after their split kernel
+// (of PPS table columns a split): a block per (slot, kv head, query head), a
+// thread per 4 output columns; a chunk's table columns and (m_s, l_s) are
+// read by warp 0, a lane a split, at once.
 // The live splits are taken MERGE_CHUNK at a time in split order, each
 // chunk in the two-pass form against the running max (M = max m_s, the
 // sums rescaled by e^(M_old - M)): with up to 128 columns, one chunk, it is
@@ -1680,19 +2048,21 @@ __global__ void __launch_bounds__(kThreads, 1) paged_mma_kernel(
 // 1e-30) exactly.  A live split whose rows are all masked has l_s = 0 and
 // acc_s = 0 and adds exactly 0; an idle slot, or a row with no column,
 // outputs exact zeros.
-template <typename T>
+template <typename T, int PPS>
 __global__ void __launch_bounds__(kThreads) paged_merge_kernel(
     const float* __restrict__ part, const int32_t* __restrict__ table,
     const int32_t* __restrict__ q_pos, T* __restrict__ out, int Hkv, int G,
     int TH, int Dv, int n_cols, int num_blocks) {
   __shared__ int lst[MERGE_CHUNK];
+  __shared__ float cw[MERGE_CHUNK], cl[MERGE_CHUNK];  // e^(m_s - M), l_s
   __shared__ int n_live;
+  __shared__ float m_new;
   const int hq = blockIdx.x;                 // (slot, kv head, head)
   const int bh = hq / G, gh = hq % G;
   const int b = bh / Hkv;
   const int n_tiles = (G + TH - 1) / TH;
   const int ct = bh * n_tiles + gh / TH, gi = gh % TH;
-  const int n_splits = (n_cols + PAGES_PER_SPLIT - 1) / PAGES_PER_SPLIT;
+  const int n_splits = (n_cols + PPS - 1) / PPS;
   const size_t part_stride = part_floats(TH, Dv);
   const float* pb = part + (size_t)ct * n_splits * part_stride;
   const int PM = TH * Dv + gi, PL = TH * Dv + TH + gi;
@@ -1707,26 +2077,51 @@ __global__ void __launch_bounds__(kThreads) paged_merge_kernel(
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int s0 = 0; s0 < n_splits && !idle; s0 += MERGE_CHUNK) {
       __syncthreads();
+      // warp 0, a lane a split: the chunk's live splits in split order, the
+      // new running max and each live split's weight e^(m_s - M) and l_s.
+      // A lane reads its split's (m_s, l_s) beside its table columns, and
+      // keeps them only if the split is live
       if (tid < 32) {
-        const int n = list_live(trow, n_cols, num_blocks, s0, lst);
-        if (tid == 0) n_live = n;
+        const int sp = s0 + tid;
+        float ms = kNegInf, ls = 0.f;
+        if (sp < n_splits) {
+          const float* ps = pb + (size_t)sp * part_stride;
+          ms = __ldcg(ps + PM);
+          ls = __ldcg(ps + PL);
+        }
+        const bool live =
+            sp < n_splits && split_live<PPS>(trow, n_cols, num_blocks, sp);
+        const unsigned mask = __ballot_sync(0xffffffffu, live);
+        const int n = __popc(mask), at = __popc(mask & ((1u << tid) - 1));
+        if (!live) ms = kNegInf, ls = 0.f;
+        float Mn = fmaxf(M, ms);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          Mn = fmaxf(Mn, __shfl_xor_sync(0xffffffffu, Mn, off));
+        if (live) {
+          lst[at] = sp;
+          cw[at] = expf(ms - Mn);
+          cl[at] = ls;
+        }
+        if (tid == 0) {
+          n_live = n;
+          m_new = Mn;
+        }
       }
       __syncthreads();
       const int n = n_live;
       if (n == 0) continue;
-      float Mn = M;
-      for (int j = 0; j < n; ++j)
-        Mn = fmaxf(Mn, pb[(size_t)lst[j] * part_stride + PM]);
+      const float Mn = m_new;
       const float alpha = expf(M - Mn);
       l *= alpha;
       a.x *= alpha, a.y *= alpha, a.z *= alpha, a.w *= alpha;
 #pragma unroll 4
       for (int j = 0; j < n && mine; ++j) {
         const float* ps = pb + (size_t)lst[j] * part_stride;
-        const float w = expf(ps[PM] - Mn);
+        const float w = cw[j];
         const float4 y =
             *reinterpret_cast<const float4*>(ps + (size_t)gi * Dv + 4 * x);
-        l += ps[PL] * w;
+        l += cl[j] * w;
         a.x += y.x * w, a.y += y.y * w, a.z += y.z * w, a.w += y.w * w;
       }
       M = Mn;
@@ -1740,11 +2135,11 @@ __global__ void __launch_bounds__(kThreads) paged_merge_kernel(
   }
 }
 
-template <typename T>
+template <typename T, int PPS>
 int launch_merge(const void* part, const void* table, const void* q_pos,
                  void* out, int B, int Hkv, int G, int TH, int Dv, int n_cols,
                  int num_blocks, cudaStream_t stream) {
-  paged_merge_kernel<T><<<B * Hkv * G, kThreads, 0, stream>>>(
+  paged_merge_kernel<T, PPS><<<B * Hkv * G, kThreads, 0, stream>>>(
       static_cast<const float*>(part), static_cast<const int32_t*>(table),
       static_cast<const int32_t*>(q_pos), static_cast<T*>(out), Hkv, G, TH,
       Dv, n_cols, num_blocks);
@@ -1777,7 +2172,8 @@ int launch_tiled(const void* q, const void* k, const void* v, const void* pos,
       scale, window, softcap);
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  return launch_merge<T>(part, table, q_pos, out, B, Hkv, G, TILE_G, Dv,
+  return launch_merge<T, PAGES_PER_SPLIT>(part, table, q_pos, out, B, Hkv, G,
+                                          TILE_G, Dv,
                          n_cols, num_blocks, stream);
 }
 
@@ -1798,29 +2194,92 @@ int launch_tiled_any(bool kv_same, const void* q, const void* k,
                                 num_blocks, scale, window, softcap, s);
 }
 
-int launch_mma(const void* q, const void* k, const void* pos,
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a tensor (bf16 unless `type` says) of `rank` dimensions (innermost first,
+// the byte strides of
+// the outer ones) as TMA boxes with 128-byte swizzle, the layout the wgmma
+// descriptors name; elements outside the tensor arrive as zeros
+bool make_map(CUtensorMap* map, const void* ptr, cuuint32_t rank,
+              const cuuint64_t* dims, const cuuint64_t* strides,
+              const cuuint32_t* box,
+              CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  EncodeTiled enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, type, rank, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The MLA instance: its split kernel, then the merge.  q / q_extra as (B x
+// Hq, D / De) matrices in boxes of 64 heads x 64 columns; the pools as (N x
+// page, Hkv, D / De) in boxes of one page's 16 rows x 64 columns of one kv
+// head.
+int launch_mla(const void* q, const void* k, const void* pos,
                const void* table, const void* q_pos, const void* q_extra,
                const void* k_extra, void* out, void* part, int B, int Hkv,
-               int G, int D, int Dv, int De, int n_cols, int num_blocks,
-               float scale, int window, float softcap, cudaStream_t stream) {
-  const size_t smem = MmaSmem(D, De).total;
-  auto kernel = paged_mma_kernel<MMA_TH>;
+               int G, int De, int n_cols, int num_blocks, float scale,
+               int window, float softcap, cudaStream_t stream) {
+  const cuuint64_t heads = (cuuint64_t)B * Hkv * G;
+  const cuuint64_t rows = (cuuint64_t)num_blocks * MLA_PAGE;
+  const cuuint64_t dq[2] = {MLA_DV, heads}, sq[1] = {MLA_DV * 2};
+  const cuuint64_t dqe[2] = {(cuuint64_t)De, heads};
+  const cuuint64_t sqe[1] = {(cuuint64_t)De * 2};
+  const cuuint64_t dk[3] = {MLA_DV, (cuuint64_t)Hkv, rows};
+  const cuuint64_t sk[2] = {MLA_DV * 2, (cuuint64_t)Hkv * MLA_DV * 2};
+  const cuuint64_t dke[3] = {(cuuint64_t)De, (cuuint64_t)Hkv, rows};
+  const cuuint64_t ske[2] = {(cuuint64_t)De * 2, (cuuint64_t)Hkv * De * 2};
+  const cuuint32_t bq[2] = {64, MLA_TH}, bk[3] = {64, 1, MLA_PAGE};
+  // the partials' acc as (parts, 64 heads, MLA_DV) float32 (a part's stride
+  // takes its m and l too) in boxes of 64 heads x 32 columns
+  const int n_splits = (n_cols + MLA_PAGES_PER_SPLIT - 1) / MLA_PAGES_PER_SPLIT;
+  const cuuint64_t dp[3] = {MLA_DV, MLA_TH,
+                            (cuuint64_t)B * Hkv * (G / MLA_TH) * n_splits};
+  const cuuint64_t spart[2] = {MLA_DV * 4,
+                               (cuuint64_t)part_floats(MLA_TH, MLA_DV) * 4};
+  const cuuint32_t bp[3] = {32, MLA_TH, 1};
+  CUtensorMap tq, tqe, tk, tke, tp;
+  if (!make_map(&tq, q, 2, dq, sq, bq) ||
+      !make_map(&tqe, q_extra, 2, dqe, sqe, bq) ||
+      !make_map(&tk, k, 3, dk, sk, bk) ||
+      !make_map(&tke, k_extra, 3, dke, ske, bk) ||
+      !make_map(&tp, part, 3, dp, spart, bp, CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
+    return (int)cudaErrorInvalidValue;
+  const int smem = MlaLayout::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      paged_mla_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int n_splits = (n_cols + PAGES_PER_SPLIT - 1) / PAGES_PER_SPLIT;
-  kernel<<<dim3(B * Hkv * (G / MMA_TH), n_splits), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const int32_t*>(pos), static_cast<const int32_t*>(table),
-      static_cast<const int32_t*>(q_pos),
-      static_cast<const __nv_bfloat16*>(q_extra),
-      static_cast<const __nv_bfloat16*>(k_extra), static_cast<float*>(part),
-      Hkv, G, D, Dv, De, n_cols, num_blocks, scale, window, softcap);
+  paged_mla_kernel<<<dim3(B * Hkv * (G / MLA_TH), n_splits), MLA_THREADS, smem,
+                     stream>>>(
+      tq, tqe, tk, tke, tp, static_cast<const int32_t*>(pos),
+      static_cast<const int32_t*>(table), static_cast<const int32_t*>(q_pos),
+      static_cast<float*>(part), Hkv, G, n_cols, num_blocks, scale, window,
+      softcap);
   const int e = (int)cudaGetLastError();
   if (e) return e;
-  return launch_merge<__nv_bfloat16>(part, table, q_pos, out, B, Hkv, G,
-                                     MMA_TH, Dv, n_cols, num_blocks, stream);
+  return launch_merge<__nv_bfloat16, MLA_PAGES_PER_SPLIT>(
+      part, table, q_pos, out, B, Hkv, G, MLA_TH, MLA_DV, n_cols, num_blocks,
+      stream);
 }
 
 }  // namespace
@@ -1830,14 +2289,14 @@ extern "C" {
 // Query heads a block of the head-tiled instance takes.
 int paged_attention_tile_heads() { return TILE_G; }
 
-// Query heads and rows a block of the tensor-core instance takes.
-int paged_attention_mma_heads() { return MMA_TH; }
-int paged_attention_mma_rows() { return MMA_R; }
+// Query heads a block of the MLA instance takes and its table columns per
+// split (the wrapper sizes its scratch with them).
+int paged_attention_mla_heads() { return MLA_TH; }
+int paged_attention_mla_pages_per_split() { return MLA_PAGES_PER_SPLIT; }
 
-// Bytes of dynamic shared memory one block of the tensor-core instance
-// needs.
-long long paged_attention_mma_smem_bytes(int D, int De) {
-  return (long long)MmaSmem(D, De).total;
+// Bytes of dynamic shared memory one block of the MLA instance needs.
+long long paged_attention_mla_smem_bytes() {
+  return (long long)MlaLayout::BYTES;
 }
 
 // Bytes of dynamic shared memory one block of the head-tiled instance
@@ -1878,12 +2337,13 @@ long long paged_attention_smem_bytes(int G, int D, int Dv, int De, int page,
 // (gemma3-12b's shape: bf16, vec, De == 0, G == 2, D == Dv == 256, 16-row
 // pages, 16-byte aligned q), with instance 0's scratch and counter.
 // instance 1: the CUDA-core head-tiled instance (any
-// G; vec rows only), instance 2: the tensor-core one (bf16, kv_same, page
-// MMA_R / PAGES_PER_SPLIT, G a multiple of MMA_TH, (D + De) % 16 == 0,
-// Dv % 128 == 0, Dv <= D, 16-byte aligned q / q_extra).  Each launches its
-// split kernel and the merge kernel; their scratch is per (slot, kv head,
-// head tile of TILE_G or MMA_TH heads), each split's partial
-// paged_attention_part_floats(heads, Dv) floats, and they take no counter.
+// G; vec rows only), instance 2: the MLA one (bf16, vec, kv_same, 16-row
+// pages, G a multiple of MLA_TH, D == Dv == MLA_DV, De a multiple of 8 in
+// [8, 64], 16-byte aligned q / q_extra; n_splits = ceil(n_cols /
+// MLA_PAGES_PER_SPLIT)).  Each launches its split kernel and the merge
+// kernel; their scratch is per (slot, kv head, head tile of TILE_G or
+// MLA_TH heads), each split's partial paged_attention_part_floats(heads,
+// Dv) floats, and they take no counter.
 // kv_same: v is k (same pointer and shape), staged once.  Returns the
 // cudaError_t of the launch.
 int paged_attention_fwd(const void* q, const void* k, const void* v,
@@ -1904,11 +2364,13 @@ int paged_attention_fwd(const void* q, const void* k, const void* v,
                        Hkv, n_cols, num_blocks, scale, window, softcap, s);
   }
   if (instance == 2) {
-    if (dtype != 1 || !vec || !kv_same || page * PAGES_PER_SPLIT != MMA_R ||
-        G % MMA_TH || (D + De) % 16 || Dv % 128 || Dv > D || n_cols < 1)
+    if (dtype != 1 || !vec || !kv_same || page != MLA_PAGE || G % MLA_TH ||
+        D != MLA_DV || Dv != MLA_DV || De < 8 || De > 64 || De % 8 ||
+        n_cols < 1 || reinterpret_cast<uintptr_t>(q) % 16 ||
+        reinterpret_cast<uintptr_t>(q_extra) % 16)
       return (int)cudaErrorInvalidValue;
-    return launch_mma(q, k, pos, table, q_pos, q_extra, k_extra, out, part,
-                      B, Hkv, G, D, Dv, De, n_cols, num_blocks, scale, window,
+    return launch_mla(q, k, pos, table, q_pos, q_extra, k_extra, out, part,
+                      B, Hkv, G, De, n_cols, num_blocks, scale, window,
                       softcap, s);
   }
   if (instance == 1) {

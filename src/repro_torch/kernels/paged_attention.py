@@ -24,9 +24,11 @@ Query groups of up to ``MAX_GROUP`` heads with head dims up to
 ``WIDE_GROUP`` heads of ``WIDE_HEAD_DIM``) its wide-head instance, a warp
 per K row with the exact group; larger ones (MLA's absorbed decode:
 G = 128 heads over one latent head of 512 plus a 64-wide rope term) run
-a head-tiled instance (``instance`` says which): in bf16, with one tensor
-passed as both k and v (MLA's latent pool) and 16-row pages, the
-tensor-core instance, ``MMA_HEADS`` query heads a block; otherwise the
+a head-tiled instance (``instance`` says which): at DeepSeek-V3's widths
+in bf16 (D = Dv = ``MLA_HEAD_DIM``, a rope term of at most 64), with one
+tensor passed as both k and v (MLA's latent pool) and 16-row pages, the
+MLA instance: ``MLA_HEADS`` query heads a block on the tensor cores
+(wgmma), splits of ``MLA_PAGES_PER_SPLIT`` table columns; otherwise the
 CUDA-core one, ``TILE_HEADS`` a block.  Both stage a row of k once when
 it is also v.
 
@@ -43,7 +45,8 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, refuse_autograd
-from repro_torch.kernels.ref import PAGES_PER_SPLIT, paged_attention_ref
+from repro_torch.kernels.ref import (MLA_PAGES_PER_SPLIT, PAGES_PER_SPLIT,
+                                     paged_attention_ref)
 
 MAX_HEAD_DIM = 256                # of the split kernel
 MAX_GROUP = 16                    # of the split kernel
@@ -51,8 +54,11 @@ WIDE_GROUP = 2                    # of its wide-head instance: gemma3's
 WIDE_HEAD_DIM = 256               # G = 2, D = Dv = 256, 16-row pages, bf16
 WIDE_PAGE = 16
 TILE_HEADS = 16                   # query heads a block of the tiled instance
-MMA_HEADS, MMA_ROWS = 64, 64      # heads and rows a block of the mma one
-_INSTANCES = {"split": 0, "tiled": 1, "mma": 2, "wide": 3}
+MLA_HEADS = 64                    # of the MLA instance: wgmma's M
+MLA_HEAD_DIM = 512                # its D = Dv (DeepSeek-V3's kv_lora_rank)
+MLA_PAGE = 16
+MLA_MAX_EXTRA = 64                # its widest rope term
+_INSTANCES = {"split": 0, "tiled": 1, "mla": 2, "wide": 3}
 MAX_SMEM_BYTES = 232_448          # 227 KB: what one Hopper block can use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -72,19 +78,20 @@ def _lib() -> ctypes.CDLL:
         lib.paged_attention_part_floats.restype = ctypes.c_longlong
         lib.paged_attention_tiled_smem_bytes.argtypes = [i] * 6
         lib.paged_attention_tiled_smem_bytes.restype = ctypes.c_longlong
-        lib.paged_attention_mma_smem_bytes.argtypes = [i] * 2
-        lib.paged_attention_mma_smem_bytes.restype = ctypes.c_longlong
+        lib.paged_attention_mla_smem_bytes.argtypes = []
+        lib.paged_attention_mla_smem_bytes.restype = ctypes.c_longlong
         lib.paged_attention_wide_smem_bytes.argtypes = [i] * 3
         lib.paged_attention_wide_smem_bytes.restype = ctypes.c_longlong
-        for fn in ("tile_heads", "mma_heads", "mma_rows"):
+        for fn in ("tile_heads", "mla_heads", "mla_pages_per_split"):
             getattr(lib, f"paged_attention_{fn}").argtypes = []
             getattr(lib, f"paged_attention_{fn}").restype = ctypes.c_int
-        if lib.paged_attention_pages_per_split() != PAGES_PER_SPLIT:
-            raise RuntimeError("paged_attention.cu and ref.PAGES_PER_SPLIT "
-                               "disagree on the columns per split")
-        if (lib.paged_attention_tile_heads(), lib.paged_attention_mma_heads(),
-                lib.paged_attention_mma_rows()) != (TILE_HEADS, MMA_HEADS,
-                                                    MMA_ROWS):
+        if (lib.paged_attention_pages_per_split(),
+                lib.paged_attention_mla_pages_per_split()) != (
+                    PAGES_PER_SPLIT, MLA_PAGES_PER_SPLIT):
+            raise RuntimeError("paged_attention.cu and ref disagree on the "
+                               "columns per split")
+        if (lib.paged_attention_tile_heads(),
+                lib.paged_attention_mla_heads()) != (TILE_HEADS, MLA_HEADS):
             raise RuntimeError("paged_attention.cu and the wrapper disagree "
                                "on the head tiles")
         lib._repro_typed = True
@@ -96,8 +103,8 @@ def smem_bytes(inst: str, G: int, D: int, Dv: int, De: int, page: int,
     """Dynamic shared memory one block of instance ``inst`` needs (from
     the kernel's own C functions, so the check and the launch share one
     formula)."""
-    if inst == "mma":
-        return int(_lib().paged_attention_mma_smem_bytes(D, De))
+    if inst == "mla":
+        return int(_lib().paged_attention_mla_smem_bytes())
     if inst == "wide":
         return int(_lib().paged_attention_wide_smem_bytes(G, D, Dv))
     if inst == "tiled":
@@ -115,21 +122,23 @@ def instance(G: int, D: int, Dv: int, De: int, page: int,
     D = Dv = ``WIDE_HEAD_DIM``; no second contraction; 16-row pages;
     16-byte aligned q (``aligned``) and pools of 16-byte rows
     (``vec``)); else "split" (G <= ``MAX_GROUP``, head dims <=
-    ``MAX_HEAD_DIM``); else a head-tiled one: "mma" on the tensor cores
+    ``MAX_HEAD_DIM``); else a head-tiled one: "mla" on the tensor cores
     where its shape allows (bf16; k is v; 16-row pages; G a multiple of
-    ``MMA_HEADS``; D + De a multiple of 16; Dv a multiple of 128 and at
-    most D; 16-byte aligned q and q_extra), else "tiled" on the CUDA
-    cores (float32 among them: the tensor cores would round it)."""
+    ``MLA_HEADS``; D = Dv = ``MLA_HEAD_DIM``; a rope term De of 8 to
+    ``MLA_MAX_EXTRA``, a multiple of 8; 16-byte aligned q and q_extra and
+    pools of 16-byte rows), else "tiled" on the CUDA cores (float32 among
+    them: the tensor cores would round it)."""
     if (dtype == torch.bfloat16 and G == WIDE_GROUP and De == 0
             and D == Dv == WIDE_HEAD_DIM and page == WIDE_PAGE and aligned
             and vec):
         return "wide"
     if G <= MAX_GROUP and max(D, Dv, De) <= MAX_HEAD_DIM:
         return "split"
-    if (dtype == torch.bfloat16 and kv_same and aligned
-            and page * PAGES_PER_SPLIT == MMA_ROWS and G % MMA_HEADS == 0
-            and (D + De) % 16 == 0 and Dv % 128 == 0 and Dv <= D):
-        return "mma"
+    if (dtype == torch.bfloat16 and kv_same and aligned and vec
+            and page == MLA_PAGE and G % MLA_HEADS == 0
+            and D == Dv == MLA_HEAD_DIM and 0 < De <= MLA_MAX_EXTRA
+            and De % 8 == 0):
+        return "mla"
     return "tiled"
 
 
@@ -237,7 +246,7 @@ def _paged_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     aligned = all(t.data_ptr() % 16 == 0
                   for t in (q,) + ((q_extra,) if De else ()))
     chosen = instance(G, D, Dv, De, page, q.dtype, kv_same, aligned, vec)
-    if chosen in ("tiled", "mma") and not vec:
+    if chosen == "tiled" and not vec:
         raise ValueError(f"the head-tiled paged decode kernel takes head "
                          f"dims of whole 16-byte units and 16-byte aligned "
                          f"pools: D={D} Dv={Dv} De={De} {q.dtype}")
@@ -247,13 +256,14 @@ def _paged_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"memory per block (> {MAX_SMEM_BYTES}): G={G} "
                          f"D={D} Dv={Dv} De={De} page={page}")
     n_cols = table.shape[1]
-    n_splits = -(-n_cols // PAGES_PER_SPLIT)
+    per_split = MLA_PAGES_PER_SPLIT if chosen == "mla" else PAGES_PER_SPLIT
+    n_splits = -(-n_cols // per_split)
     if n_splits > 65535:
         raise ValueError(f"paged decode kernel takes at most "
-                         f"{65535 * PAGES_PER_SPLIT} table columns: {n_cols}")
+                         f"{65535 * per_split} table columns: {n_cols}")
     # the head-tiled instances keep partials per head tile
     heads = {"split": G, "wide": G, "tiled": TILE_HEADS,
-             "mma": MMA_HEADS}[chosen]
+             "mla": MLA_HEADS}[chosen]
     groups = B * Hkv * -(-G // heads)
     out = torch.empty((B, 1, Hq, Dv), dtype=q.dtype, device=q.device)
     part_floats = int(_lib().paged_attention_part_floats(heads, Dv))

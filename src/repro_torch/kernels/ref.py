@@ -77,8 +77,10 @@ def paged_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # table columns per split of the paged-decode kernel (``PAGES_PER_SPLIT``
-# in csrc/paged_attention.cu, which reports it to the wrapper)
+# in csrc/paged_attention.cu, which reports it to the wrapper), and of its
+# MLA instance (``MLA_PAGES_PER_SPLIT`` there)
 PAGES_PER_SPLIT = 4
+MLA_PAGES_PER_SPLIT = 8
 
 
 def paged_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
@@ -87,30 +89,36 @@ def paged_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
                               scale: Optional[float] = None, window: int = 0,
                               softcap: float = 0.0,
                               q_extra: Optional[torch.Tensor] = None,
-                              k_extra: Optional[torch.Tensor] = None
-                              ) -> torch.Tensor:
+                              k_extra: Optional[torch.Tensor] = None,
+                              pages_per_split: int = PAGES_PER_SPLIT,
+                              round_p: bool = False) -> torch.Tensor:
     """The split-K algorithm of the paged-decode kernel, in plain ops.
 
     Same arguments and result as ``paged_attention_ref``.  Split s covers
-    the fixed table columns [s * PAGES_PER_SPLIT, (s + 1) *
-    PAGES_PER_SPLIT) (columns past the table count as -1), so appending
-    columns never moves a boundary.  Each split's ``PAGES_PER_SPLIT *
+    the fixed table columns [s * pages_per_split, (s + 1) *
+    pages_per_split) (columns past the table count as -1), so appending
+    columns never moves a boundary.  Each split's ``pages_per_split *
     page`` rows give a partial (m_s = its largest unmasked score, or
     -1e30; l_s = sum of exp(s - m_s) over unmasked rows; acc_s = the
     same weights times V); the partials then merge in split order:
     ``M = max m_s``, ``l = sum l_s e^(m_s - M)``, ``o = sum acc_s
     e^(m_s - M) / max(l, 1e-30)``, skipping the splits with l_s = 0
     (no unmasked row: adding them would add exactly 0).  So -1 columns
-    are neutral bit for bit, and an idle slot outputs exact zeros."""
+    are neutral bit for bit, and an idle slot outputs exact zeros.
+
+    ``round_p=True`` rounds P to q's dtype for the P.V product (l sums
+    the unrounded P), as the MLA instance (``MLA_PAGES_PER_SPLIT``
+    columns a split) rounds it to bf16 for the tensor cores."""
     B, _, Hq, D = q.shape
     page, Hkv, Dv = v.shape[1], v.shape[2], v.shape[3]
     G = Hq // Hkv
     if scale is None:
         scale = D ** -0.5
     n_cols = table.shape[1]
-    n_splits = -(-n_cols // PAGES_PER_SPLIT)
-    tab = F.pad(table, (0, n_splits * PAGES_PER_SPLIT - n_cols), value=-1)
-    R = PAGES_PER_SPLIT * page
+    pps = pages_per_split
+    n_splits = -(-n_cols // pps)
+    tab = F.pad(table, (0, n_splits * pps - n_cols), value=-1)
+    R = pps * page
     qf = q.float().reshape(B, Hkv, G, D) * scale
     qe = None
     if q_extra is not None:
@@ -118,7 +126,7 @@ def paged_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
     qp = q_pos.reshape(B, 1)
     parts = []                  # (m_s, l_s, acc_s), one per split, in order
     for i in range(n_splits):   # the same ops on the same shapes per split
-        ts = tab[:, i * PAGES_PER_SPLIT:(i + 1) * PAGES_PER_SPLIT]
+        ts = tab[:, i * pps:(i + 1) * pps]
         safe = ts.clamp(min=0).long()
         s = torch.einsum("bngd,brnd->bngr", qf,
                          k[safe].reshape(B, R, Hkv, D).float())
@@ -135,8 +143,9 @@ def paged_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
         s = torch.where(okb, s, NEG_INF)
         m = s.amax(dim=-1)                                # (B,Hkv,G)
         p = torch.where(okb, torch.exp(s - m[..., None]), 0.0)
+        pv = p.to(q.dtype).float() if round_p else p
         parts.append((m, p.sum(dim=-1), torch.einsum(
-            "bngr,brnd->bngd", p, v[safe].reshape(B, R, Hkv, Dv).float())))
+            "bngr,brnd->bngd", pv, v[safe].reshape(B, R, Hkv, Dv).float())))
     M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
     l = torch.zeros_like(M)
     acc = torch.zeros((B, Hkv, G, Dv), dtype=torch.float32, device=q.device)

@@ -29,7 +29,6 @@ backward: there the bound is two bf16 ulps (2^-7) of the largest element.
 """
 import dataclasses
 import os
-import socket
 
 import numpy as np
 import pytest
@@ -37,6 +36,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_cpu import one_torch_thread  # noqa: E402,F401
+from _torch_gloo import init_gloo, rendezvous  # noqa: E402
 
 from repro_torch.configs import InputShape, get_smoke_config  # noqa: E402
 from repro_torch.tree import flatten_with_paths, tree_map  # noqa: E402
@@ -48,12 +48,6 @@ ARCHS = ["qwen3-8b", "qwen3-8b:mqa", "qwen3-moe-235b-a22b", "rwkv6-7b",
          "jamba-1.5-large-398b", "deepseek-v3-671b", "gemma3-12b"]
 B, PROMPT, CACHE, PAGE = 4, 8, 16, 4
 TOL, TOL_EP = 1e-4, 2.0 ** -7
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _cfg(arch, moe_ep):
@@ -201,12 +195,11 @@ def _run(cfg, params, *, mesh=None, moe_ep=False):
     return res
 
 
-def _worker(rank, world, port, arch, moe_ep, out_dir):
+def _worker(rank, world, rdzv, arch, moe_ep, out_dir):
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
+    init_gloo(rdzv, rank, world)
     try:
         mesh = init_device_mesh("cpu", (2, 2),
                                 mesh_dim_names=("data", "model"))
@@ -229,7 +222,8 @@ def _cases():
 @pytest.mark.parametrize("arch,moe_ep", _cases())
 def test_sharded_program_matches_plain(arch, moe_ep, tmp_path):
     import torch.multiprocessing as mp
-    mp.spawn(_worker, args=(4, _free_port(), arch, moe_ep, str(tmp_path)),
+    mp.spawn(_worker, args=(4, rendezvous(tmp_path), arch, moe_ep,
+                            str(tmp_path)),
              nprocs=4, join=True)
     got = torch.load(tmp_path / "mesh.pt")
     cfg = _cfg(arch, moe_ep)

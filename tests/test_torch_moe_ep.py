@@ -35,7 +35,6 @@ dry-run's hints.
 """
 import dataclasses
 import os
-import socket
 import subprocess
 import sys
 
@@ -45,6 +44,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_cpu import one_torch_thread  # noqa: E402,F401
+from _torch_gloo import init_gloo, rendezvous  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -102,20 +102,13 @@ def test_no_hint_context_is_the_one_group_path():
     assert torch.equal(a, b)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _ep_worker(rank, world, port, arch, out_dir):
+def _ep_worker(rank, world, rdzv, arch, out_dir):
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     from repro_torch.launch.shardings import default_hint_rule
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
+    init_gloo(rdzv, rank, world)
     try:
         mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data",
                                                                "model"))
@@ -159,7 +152,8 @@ def _ep_worker(rank, world, port, arch, out_dir):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_moe_apply_ep_matches_one_device(arch, tmp_path):
     import torch.multiprocessing as mp
-    mp.spawn(_ep_worker, args=(4, _free_port(), arch, str(tmp_path)),
+    mp.spawn(_ep_worker, args=(4, rendezvous(tmp_path), arch,
+                               str(tmp_path)),
              nprocs=4, join=True)
     got = torch.load(tmp_path / "ep.pt")
     cfg = dataclasses.replace(get_smoke_config(arch), capacity_factor=8.0)
@@ -235,14 +229,13 @@ def _flat(tree, prefix=""):
     return out
 
 
-def _ep_jax_worker(rank, world, port, case, params, x, out_dir):
+def _ep_jax_worker(rank, world, rdzv, case, params, x, out_dir):
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     from repro_torch.launch.shardings import default_hint_rule
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
+    init_gloo(rdzv, rank, world)
     try:
         mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data",
                                                                "model"))
@@ -286,8 +279,8 @@ def test_moe_apply_ep_matches_jax(jax_ep, case, tmp_path):
     import torch.multiprocessing as mp
     params = _case_tree(jax_ep, f"{case}/params/")
     x = jax_ep[f"{case}/x"]
-    mp.spawn(_ep_jax_worker, args=(4, _free_port(), case, params, x,
-                                   str(tmp_path)), nprocs=4, join=True)
+    mp.spawn(_ep_jax_worker, args=(4, rendezvous(tmp_path), case, params,
+                                   x, str(tmp_path)), nprocs=4, join=True)
     got = torch.load(tmp_path / "ep.pt")
     ref = jax_ep[f"{case}/out"]
     err = np.abs(got["out"].numpy() - ref).max()

@@ -9,8 +9,10 @@ plain mirror of the kernel's split-K algorithm (fixed column splits,
 ordered merge); it is held against the sequential plain version, the
 JAX kernel, and its own bitwise invariants.  MLA's absorbed-decode shape
 (one latent head under many query heads, the latent pool as both K and
-V, a rope term; the kernel's head-tiled instance on the card) is covered
-at a CPU-sized copy: G = 32, D = Dv = 64, De = 16.  Inputs are drawn
+V, a rope term; the kernel's head-tiled instances on the card) is covered
+at a CPU-sized copy: G = 32, D = Dv = 64, De = 16, with the mirror of
+the CUDA-core instance (``PAGES_PER_SPLIT`` columns a split) and of the
+MLA instance (``MLA_PAGES_PER_SPLIT``, P rounded to the input dtype).  Inputs are drawn
 with numpy from a seed and handed to both packages.  Tolerances are those of
 ``test_paged_kernel.py``: 2e-5 for float32, 2e-2 for bfloat16.
 """
@@ -28,7 +30,8 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     MAX_GROUP, instance, paged_attention_fwd)
 from repro_torch.kernels.ref import (  # noqa: E402
-    PAGES_PER_SPLIT, paged_attention_ref, paged_attention_split_ref)
+    MLA_PAGES_PER_SPLIT, PAGES_PER_SPLIT, paged_attention_ref,
+    paged_attention_split_ref)
 from repro_torch.models.layers import attention  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
@@ -361,6 +364,16 @@ def mla_case(used, seed):
 MLA_SCALE = (32 + 32) ** -0.5           # (nope + rope) ** -0.5, deepseek smoke
 
 
+def mirror(pps):
+    """The split mirror's options for a split length: the MLA instance's
+    (P rounded to the input dtype) at ``MLA_PAGES_PER_SPLIT``, the split
+    kernel's otherwise."""
+    return dict(pages_per_split=pps, round_p=pps == MLA_PAGES_PER_SPLIT)
+
+
+SPLITS = [PAGES_PER_SPLIT, MLA_PAGES_PER_SPLIT]
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("used", [1, 3, MLA_CPU["n_cols"]])
 def test_mla_shape_matches_jax(used, dtype):
@@ -373,30 +386,44 @@ def test_mla_shape_matches_jax(used, dtype):
     assert out.dtype == tdt and out.shape == (2, 1, 32, 64)
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(exp, np.float32), atol=tol, rtol=tol)
-    split = paged_attention_split_ref(*(c[k] for k in ARGS), scale=MLA_SCALE,
-                                      q_extra=c["q_extra"],
-                                      k_extra=c["k_extra"])
-    np.testing.assert_allclose(split.float().numpy(),
-                               np.asarray(exp, np.float32), atol=tol, rtol=tol)
+    for pps in SPLITS:
+        split = paged_attention_split_ref(*(c[k] for k in ARGS),
+                                          scale=MLA_SCALE,
+                                          q_extra=c["q_extra"],
+                                          k_extra=c["k_extra"], **mirror(pps))
+        np.testing.assert_allclose(split.float().numpy(),
+                                   np.asarray(exp, np.float32), atol=tol,
+                                   rtol=tol)
 
 
+@pytest.mark.parametrize("pps", SPLITS)
 @pytest.mark.parametrize("used", [1, 3, MLA_CPU["n_cols"]])
-def test_mla_shape_split_ref_matches_sequential_plain(used):
-    c = to_torch(mla_case(used, seed=30 + used), torch.float32)
+def test_mla_shape_split_ref_matches_sequential_plain(used, pps):
+    """The split mirror of either head-tiled instance against the
+    sequential plain version and the JAX kernel (interpret mode) in
+    float32."""
+    case = mla_case(used, seed=30 + used)
+    c = to_torch(case, torch.float32)
     c["v"] = c["k"]
     kw = dict(scale=MLA_SCALE, q_extra=c["q_extra"], k_extra=c["k_extra"])
-    out = paged_attention_split_ref(*(c[k] for k in ARGS), **kw)
+    out = paged_attention_split_ref(*(c[k] for k in ARGS), **kw,
+                                    **mirror(pps))
     exp = paged_attention_ref(*(c[k] for k in ARGS), **kw)
     torch.testing.assert_close(out, exp, atol=2e-5, rtol=2e-5)
+    jexp = call(jops, to_jax(case, jnp.float32), scale=MLA_SCALE)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jexp, np.float32),
+                               atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("pps", SPLITS)
 @pytest.mark.parametrize("extra", [2, 3 * PAGES_PER_SPLIT + 1])
-def test_mla_shape_neutral_columns_and_idle_slot(extra):
+def test_mla_shape_neutral_columns_and_idle_slot(extra, pps):
     """-1 columns appended leave the split mirror's output bit for bit;
     an idle slot outputs exact zeros."""
     c = to_torch(mla_case(5, seed=40), torch.float32)
     c["v"] = c["k"]
-    kw = dict(scale=MLA_SCALE, q_extra=c["q_extra"], k_extra=c["k_extra"])
+    kw = dict(scale=MLA_SCALE, q_extra=c["q_extra"], k_extra=c["k_extra"],
+              **mirror(pps))
     base = paged_attention_split_ref(*(c[k] for k in ARGS), **kw)
     wide = dict(c, table=torch.cat([c["table"], torch.full(
         (2, extra), -1, dtype=torch.int32)], 1))
@@ -406,17 +433,48 @@ def test_mla_shape_neutral_columns_and_idle_slot(extra):
     out = paged_attention_split_ref(*(c[k] for k in ARGS), **kw)
     assert torch.equal(out[1], torch.zeros_like(out[1]))
     assert torch.equal(out[0], base[0])
-    out = paged_attention_ref(*(c[k] for k in ARGS), **kw)
+    out = paged_attention_ref(*(c[k] for k in ARGS), scale=MLA_SCALE,
+                              q_extra=c["q_extra"], k_extra=c["k_extra"])
     assert torch.equal(out[1], torch.zeros_like(out[1]))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("extra", [1, MLA_PAGES_PER_SPLIT,
+                                   MLA_PAGES_PER_SPLIT + 1])
+def test_mla_split_ref_columns_past_boundary_bit_for_bit(extra, dtype):
+    """A table whose used columns end on an MLA split boundary (one whole
+    split, and one and a half splits in the next case): -1 columns
+    appended past the boundary, in a new split or two, leave the MLA
+    mirror's output bit for bit in float32 and in bf16 (P rounded)."""
+    tdt = DTYPES[dtype][1]
+    for used in (MLA_PAGES_PER_SPLIT, MLA_PAGES_PER_SPLIT + 4):
+        case = pool_case(2, 32, 1, 64, 16, used, used_cols=used, seed=50,
+                         De=16)
+        case["v"] = case["k"]
+        c = to_torch(case, tdt)
+        c["v"] = c["k"]
+        kw = dict(scale=MLA_SCALE, q_extra=c["q_extra"],
+                  k_extra=c["k_extra"], **mirror(MLA_PAGES_PER_SPLIT))
+        base = paged_attention_split_ref(*(c[k] for k in ARGS), **kw)
+        wide = dict(c, table=torch.cat([c["table"], torch.full(
+            (2, extra), -1, dtype=torch.int32)], 1))
+        out = paged_attention_split_ref(*(wide[k] for k in ARGS), **kw)
+        assert torch.equal(out, base)
+        exp = paged_attention_ref(*(c[k] for k in ARGS), scale=MLA_SCALE,
+                                  q_extra=c["q_extra"], k_extra=c["k_extra"])
+        tol = DTYPES[dtype][2]
+        torch.testing.assert_close(out.float(), exp.float(), atol=tol,
+                                   rtol=tol)
 
 
 def test_instance_choice():
     """Groups of more than MAX_GROUP query heads, or head dims past the
     split kernel's, go to a head-tiled instance: deepseek-v3's absorbed
-    decode in bf16 with the latent pool as k and v to the tensor cores;
-    float32 (which the tensor cores would round), a separate v, other
-    pages, an odd head count or the CPU-sized copy of the shape to the
-    CUDA cores.  The GQA decode shapes of qwen3-8b and jamba, and the
+    decode in bf16 with the latent pool as k and v (D = Dv = 512, a rope
+    term of 8 to 64, a multiple of 8) to the MLA instance; float32 (which
+    the tensor cores would round), a separate v, other pages, other head
+    dims or rope widths, an odd head count, unaligned rows or the
+    CPU-sized copy of the shape to the CUDA cores.  The GQA decode shapes of qwen3-8b and jamba, and the
     small MLA case, keep the split kernel.  gemma3-12b's decode (G = 2,
     D = Dv = 256, 16-row pages, bf16) takes the split kernel's wide-head
     instance, built for that shape alone; in float32, unaligned, with
@@ -439,8 +497,15 @@ def test_instance_choice():
     assert instance(MAX_GROUP, 512, 512, 64, 16, bf, True) == "tiled"
     assert instance(4, 128, 128, 0, 16, bf, False) == "split"
     assert instance(4, 48, 48, 16, 8, bf, True) == "split"
-    assert instance(128, 512, 512, 64, 16, bf, True) == "mma"
-    assert instance(64, 512, 512, 64, 16, bf, True) == "mma"
+    assert instance(128, 512, 512, 64, 16, bf, True) == "mla"
+    assert instance(64, 512, 512, 64, 16, bf, True) == "mla"
+    assert instance(128, 512, 512, 16, 16, bf, True) == "mla"
+    assert instance(128, 512, 512, 72, 16, bf, True) == "tiled"
+    assert instance(128, 512, 512, 12, 16, bf, True) == "tiled"
+    assert instance(128, 512, 512, 0, 16, bf, True) == "tiled"
+    assert instance(128, 256, 256, 64, 16, bf, True) == "tiled"
+    assert instance(128, 512, 256, 64, 16, bf, True) == "tiled"
+    assert instance(128, 512, 512, 64, 16, bf, True, vec=False) == "tiled"
     assert instance(128, 512, 512, 64, 16, f32, True) == "tiled"
     assert instance(128, 512, 512, 64, 16, bf, False) == "tiled"
     assert instance(128, 512, 512, 64, 8, bf, True) == "tiled"

@@ -20,7 +20,6 @@ Tolerances, with reasons:
 """
 import dataclasses
 import os
-import socket
 import subprocess
 import sys
 
@@ -30,6 +29,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_cpu import one_torch_thread  # noqa: E402,F401
+from _torch_gloo import init_gloo, rendezvous  # noqa: E402
 
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models.config import LayerSpec  # noqa: E402
@@ -37,12 +37,6 @@ from repro_torch.tree import flatten_with_paths  # noqa: E402
 
 N_STAGES = 4
 HERE = os.path.dirname(os.path.abspath(__file__))
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _model_cfg():
@@ -143,11 +137,10 @@ def _run_cases(rank, world, jax_dump):
     return res
 
 
-def _worker(rank, world, port, dump_path, out_dir):
+def _worker(rank, world, rdzv, dump_path, out_dir):
     import torch.distributed as dist
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
+    init_gloo(rdzv, rank, world)
     try:
         with np.load(dump_path) as d:
             jax_dump = {k: d[k] for k in d.files}
@@ -174,7 +167,8 @@ def jax_dump(tmp_path_factory):
 
 def _spawn(world, dump_path, out_dir):
     import torch.multiprocessing as mp
-    mp.spawn(_worker, args=(world, _free_port(), dump_path, str(out_dir)),
+    mp.spawn(_worker, args=(world, rendezvous(out_dir), dump_path,
+                            str(out_dir)),
              nprocs=world, join=True)
     return [torch.load(out_dir / f"rank{r}.pt") for r in range(world)]
 

@@ -748,6 +748,8 @@ def profile_ticks(eng, n=3, step=None, what="decode ticks"):
     ``torch.profiler`` (its own overhead inflates the wall time, so the
     busy share is a lower bound)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
     step = step or eng.tick
     step()
     torch.cuda.synchronize()
@@ -758,8 +760,10 @@ def profile_ticks(eng, n=3, step=None, what="decode ticks"):
             step()
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
+    tracing.reset()                    # the session's spans: read by none
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in kernels)
     if busy <= 0:
         print("profile: the profiler saw no device time (not measured)")
@@ -824,6 +828,8 @@ def device_ms(fn, n, kernel=None):
     from collections import Counter
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import tracing
+
     def records(calls):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -833,8 +839,10 @@ def device_ms(fn, n, kernel=None):
             for i in range(calls):
                 fn(i)
             torch.cuda.synchronize()
+        tracing.reset()                # the session's spans: read by none
         ev = sorted((e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)),
                     key=lambda e: e.time_range.start)
         marks = [k for k, e in enumerate(ev) if "spin_kernel" in e.name]
         return [e for e in ev[marks[-1] + 1 if marks else len(ev):]
@@ -3106,6 +3114,8 @@ def profile_train_step(trainer, step_fn, loader, step):
     under ``torch.profiler``: the busy share of the step's wall time and
     the shares of the flash kernel, the matmuls and the rest."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
     batch = loader.batch(step)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3115,8 +3125,10 @@ def profile_train_step(trainer, step_fn, loader, step):
             trainer.params, trainer.opt_state, batch)
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
+    tracing.reset()                    # the session's spans: read by none
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in kernels)
     if busy <= 0:
         print("profile: the profiler saw no device time (not measured)")

@@ -8,9 +8,10 @@ kernel takes, allocates the outputs, and launches on PyTorch's current
 stream — or raises; nothing falls back.  Called directly, it raises on
 CUDA inputs that require grad under grad mode (the launch leaves no
 autograd node); ``FlashAttention`` runs it with grad mode off and
-differentiates it.  ``flash_attention_fwd.launches`` counts launches, so
-a run can show that its attention went through the kernel
-(``window_launches`` counts those with a sliding window apart).
+differentiates it, each call in a ``tracing`` span (``attn.forward``,
+``attn.backward``) with its shape.  ``flash_attention_fwd.launches``
+counts launches, so a run can show that its attention went through the
+kernel (``window_launches`` counts those with a sliding window apart).
 
 ``FlashAttention`` is the differentiable call: its forward is
 ``flash_attention_fwd``; its backward, ``flash_attention_bwd``, is plain
@@ -25,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.ref import flash_attention_ref
 
@@ -173,14 +175,26 @@ def flash_attention_bwd(q, k, v, out, lse, d_out, *, causal: bool = True,
             dv.to(v.dtype))
 
 
+def _span(name, q, k, causal, window):
+    """A ``tracing`` span with the call's shape, built only when spans
+    record."""
+    if not tracing.enabled():
+        return tracing.NULL
+    B, Hq, S, D = q.shape
+    return tracing.span(name, B=B, Hq=Hq, Hkv=k.shape[1], S=S, T=k.shape[2],
+                        D=D, causal=bool(causal), window=int(window),
+                        dtype=str(q.dtype).removeprefix("torch."))
+
+
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention: the kernel forward (the plain
     version on CPU tensors) and the plain blocked backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                       scale=scale)
+        with _span("attn.forward", q, k, causal, window):
+            out, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                           window=window, scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = dict(causal=causal, window=window, scale=scale)
         return out
@@ -188,5 +202,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_out):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, d_out, **ctx.opts)
+        with _span("attn.backward", q, k, ctx.opts["causal"],
+                   ctx.opts["window"]):
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, d_out,
+                                             **ctx.opts)
         return dq, dk, dv, None, None, None

@@ -11,6 +11,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import forward, mtp_hidden
 from repro_torch.train.loss import cross_entropy_chunked
@@ -77,16 +78,26 @@ def make_train_step(cfg: ModelConfig, optimizer, *, microbatches: int = 1,
     slices in float32, averaged, as the JAX version's scan does;
     ``remat_policy``: full | dots | dots_no_batch | none (see
     ``transformer._remat_wrap``).
-    The params must require gradients (``transformer.trainable``)."""
+    The params must require gradients (``transformer.trainable``).
+    A step runs in ``tracing`` spans: ``train.step`` around
+    ``train.forward`` and ``train.backward`` (once per microbatch) and
+    ``train.optimizer``."""
     def grad_fn(params, batch):
-        loss, metrics = loss_fn(params, cfg, batch, remat=remat,
-                                mtp_coef=mtp_coef, ce_chunk=ce_chunk,
-                                remat_policy=remat_policy,
-                                use_kernel=use_kernel)
+        with tracing.span("train.forward"):
+            loss, metrics = loss_fn(params, cfg, batch, remat=remat,
+                                    mtp_coef=mtp_coef, ce_chunk=ce_chunk,
+                                    remat_policy=remat_policy,
+                                    use_kernel=use_kernel)
+        with tracing.span("train.backward"):
+            grads = grads_of(params, loss)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            grads_of(params, loss)
+            grads
 
     def train_step(params, opt_state, batch):
+        with tracing.span("train.step"):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state, batch):
         if microbatches == 1:
             loss, metrics, grads = grad_fn(params, batch)
         else:
@@ -114,8 +125,9 @@ def make_train_step(cfg: ModelConfig, optimizer, *, microbatches: int = 1,
                 loss = loss + l / microbatches
                 del g
             grads = unflatten(params, iter(grads))
-        params, opt_state, opt_metrics = optimizer.update(grads, opt_state,
-                                                          params)
+        with tracing.span("train.optimizer"):
+            params, opt_state, opt_metrics = optimizer.update(
+                grads, opt_state, params)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss

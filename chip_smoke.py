@@ -154,22 +154,29 @@ failure:
    window 1024 and causal); then autograd
    through the port's flash attention (kernel forward, plain blocked
    backward) against autograd through the plain version, f32, each
-   gradient within 1e-4 of its scale;
+   gradient within 1e-4 of its scale.  11c holds the backward kernel
+   (bf16, D <= 128) against the plain backward on the same inputs over
+   the sweep (its D = 256 row must take the plain route) and at qwen3-8b's
+   training shape, causal and with the window: each gradient within
+   ``BWD_TOL``, two calls equal bit for bit;
 12. train qwen3-8b at full width, 8 of its 36 layers, through the port's
    ``Trainer`` (adamw, cosine_lr, full remat, ``use_kernel=True``) for 7
    steps of 2 x 4096 SyntheticLM tokens: every attention forward and
    remat recompute must have gone through the kernel (launches == 16 x
-   7), the losses must be finite and the last below the first; step 0
+   7), and every backward through the backward kernel (8 x 7, no plain
+   call), the losses must be finite and the last below the first; step 0
    through the kernel and through the plain scan attention must agree
    in loss, grad norm and gradients (``STEP0_TOL``, set from a measured
    rounding floor).  Prints step ms, tokens/s, MFU and peak memory.
    12b: the same scenario for 3 steps under each remat policy ("full",
-   "dots_no_batch", "dots"): flash launches == 16 a step under each,
+   "dots_no_batch", "dots"): flash launches == 16 a step and backward
+   kernel launches == 8 a step under each,
    step 0's loss and grad norm equal "full"'s within ``STEP0_TOL``; ms
    per step and peak memory printed.  12c: gemma3-12b trained the same
    way at full width, one period of its 48 layers (5 sliding-window of
    window 1024 + 1 global, 2.35 B parameters), 5 steps: flash launches
-   == 12 a step, 10 of them with the window, step 0 kernel vs plain
+   == 12 a step, 10 of them with the window, its 6 backward calls a step
+   by the plain route (D = 256), step 0 kernel vs plain
    within ``STEP0_TOL``, falling loss.  12d: the scan kernels have no
    backward: one training step (``loss_fn`` + gradients, B=2, S=512)
    with ``use_kernel=True`` on jamba-1.5-large's attention and first
@@ -183,7 +190,9 @@ failure:
    only; the port never calls it); 13b at gemma3-12b's two training
    shapes (D = 256, window 1024 and causal) by device time, SDPA with
    ``enable_gqa=True`` (the window as a boolean mask) and its backend
-   named;
+   named; 13c the backward kernel at qwen3-8b's training shape by device
+   time, its two passes apart, beside its bound, its tensor work at the
+   peak, the plain backward and SDPA's backward (a yardstick only);
 14. hold the int8 block quantization kernels (``int8_quantize`` /
    ``int8_dequantize``) against their plain versions: the sweep of
    ``tests/test_kernels.py`` (n 17..4096, f32 and bf16, block 256 and
@@ -255,7 +264,7 @@ failure:
    checkout (exit 0 required; files scanned, new / baselined /
    suppressed counts and its wall time printed); 18b holds every
    ``extern "C"`` function that the checker's KRN001 parses from
-   ``csrc/*.cu`` (17 over 5 sources) to the built libraries: the
+   ``csrc/*.cu`` (18 over 5 sources) to the built libraries: the
    functions each wrapper binds are exactly its source's, each is a
    symbol of the built library, and each live ctypes binding's
    ``argtypes`` / ``restype`` match the declaration in count and width;
@@ -265,7 +274,7 @@ failure:
    plain versions.  The phase's time is printed with the card's name and
    power limit.
 
-The phases run in the order 1-2c, 10c, 5, 11, 13b (the kernel checks
+The phases run in the order 1-2c, 10c, 5, 11, 11c, 13b, 13c (the kernel checks
 and the times a profiler takes before serving), 2d, 3-4, 6-7, 8-10b, 9b,
 9c-9e, 12-12d, 13, 14 (the sweep), 15, 14 (the large run and times),
 16, 17, 18; each model is freed before the next is drawn.  The total time
@@ -611,6 +620,8 @@ def reset_counts(kernels) -> None:
         k.launches = 0
         if hasattr(k, "window_launches"):
             k.window_launches = 0
+        if hasattr(k, "plain_calls"):
+            k.plain_calls = 0
         if hasattr(k, "instance_launches"):
             k.instance_launches = dict.fromkeys(k.instance_launches, 0)
 
@@ -2890,6 +2901,81 @@ def phase_flash_backward():
     return max(errs)
 
 
+# 11c: the backward kernel against the plain backward, bf16 (both round
+# float32 gradients to bf16 once; the kernel's P^T and dS carry about 16
+# bits as hi + lo, and its float32 sums run in another order): each
+# gradient's largest difference within BWD_TOL["max"] of its largest
+# element (one bf16 step is 2^-8 = 3.9e-3 of it), the difference's L2
+# norm within BWD_TOL["l2"] of the gradient's (bf16 rounding alone gives
+# about 2^-9 / sqrt(3) = 1.1e-3).  A wrong tile or mask reads 1e-1 and up.
+BWD_TOL = {"max": 1e-2, "l2": 4e-3}
+
+
+def flash_bwd_case(B, Hq, Hkv, S, T, D, window, *, seed):
+    """bf16 q, k, v, dO and the forward kernel's output and lse."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    q, k, v = flash_case(B, Hq, Hkv, S, T, D, seed=seed, dtype=torch.bfloat16)
+    d_out = flash_case(B, Hq, Hkv, S, T, D, seed=seed + 1,
+                       dtype=torch.bfloat16)[0]
+    out, lse = flash_attention_fwd(q, k, v, window=window)
+    return q, k, v, out, lse, d_out
+
+
+def phase_flash_bwd_vs_plain():
+    """11c: the backward kernel (``flash_attention_bwd`` on bf16 CUDA
+    inputs with D <= 128) against ``flash_attention_bwd_plain`` on the
+    same inputs, over phase 11's sweep (D <= 128; its D = 256 row must
+    take the plain route) and at qwen3-8b's training shape, causal and
+    with a 1,024-token window: each gradient within ``BWD_TOL``; two
+    kernel calls equal bit for bit; one launch a call."""
+    from repro_torch.kernels.flash_attention import (
+        BWD_MAX_HEAD_DIM, bwd_route, flash_attention_bwd,
+        flash_attention_bwd_plain)
+    worst = {"max": 0.0, "l2": 0.0}
+    for shape in FLASH_SWEEP + [FLASH_TRAIN, FLASH_WINDOW]:
+        B, Hq, Hkv, S, T, D, window = shape
+        case = flash_bwd_case(*shape, seed=S + D)
+        route = bwd_route(case[0])
+        if route != ("kernel" if D <= BWD_MAX_HEAD_DIM else "plain"):
+            fail(f"11c {shape}: backward route {route}")
+        if route == "plain":
+            continue
+        before = flash_attention_bwd.launches
+        got = flash_attention_bwd(*case, window=window)
+        again = flash_attention_bwd(*case, window=window)
+        torch.cuda.synchronize()
+        if flash_attention_bwd.launches != before + 2:
+            fail(f"11c {shape}: {flash_attention_bwd.launches - before} "
+                 f"launches for 2 calls")
+        exp = flash_attention_bwd_plain(*case, window=window)
+        errs = []
+        for name, a, b, c in zip("qkv", got, exp, again):
+            if not torch.equal(a, c):
+                fail(f"11c {shape}: two calls' d{name} differ")
+            a, b = a.float(), b.float()
+            e = {"max": (a - b).abs().max().item() / b.abs().max().item(),
+                 "l2": ((a - b).norm() / b.norm()).item()}
+            for k, v in e.items():
+                if not v <= BWD_TOL[k]:
+                    fail(f"11c {shape} d{name}: {k} difference {v:.3e} of "
+                         f"the gradient's (tol {BWD_TOL[k]})")
+                worst[k] = max(worst[k], v)
+            errs.append(e)
+        del case, got, again, exp
+        torch.cuda.empty_cache()
+        if shape in (FLASH_TRAIN, FLASH_WINDOW):
+            print(f"flash backward kernel vs plain at (B,Hq,Hkv,S,D,window)="
+                  f"{(B, Hq, Hkv, S, D, window)}, bf16: "
+                  + ", ".join(f"d{n} max {e['max']:.3e} l2 {e['l2']:.3e}"
+                              for n, e in zip("qkv", errs))
+                  + f" (tol {BWD_TOL}); two calls equal bit for bit")
+    print(f"flash backward kernel vs plain over the sweep (D <= "
+          f"{BWD_MAX_HEAD_DIM}) and the training shapes: worst max "
+          f"{worst['max']:.3e}, l2 {worst['l2']:.3e} of each gradient's "
+          f"(tol {BWD_TOL}); the D = 256 row took the plain route")
+    return worst
+
+
 def flash_bound(B, Hq, Hkv, S, T, D, window, isz):
     """Least time at one shape: q, k, v read once, out written once (in
     the input dtype), lse written once (f32); two products of D
@@ -2910,7 +2996,7 @@ def flash_bound(B, Hq, Hkv, S, T, D, window, isz):
 
 def phase_flash_times(fwd, ref):
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
     B, Hq, Hkv, S, T, D, window = FLASH_TRAIN
     cases = [flash_case(B, Hq, Hkv, S, T, D, seed=10 + i, dtype=torch.bfloat16)
              for i in range(2)]          # 2 x 168 MB in turn: L2 holds neither
@@ -2933,10 +3019,10 @@ def phase_flash_times(fwd, ref):
     for i in range(2):
         sdpa(i)
     library_ms = event_ms(sdpa, 20)
-    # the backward the training step runs after each launch (plain
-    # PyTorch), timed alone for the step's breakdown
+    # the plain blocked backward (the training step's before the backward
+    # kernel; phase 13c times the kernel), timed alone
     d_out = torch.randn_like(out)
-    backward_ms = event_ms(lambda i: flash_attention_bwd(
+    backward_ms = event_ms(lambda i: flash_attention_bwd_plain(
         *cases[i % 2], out, lse, d_out), 2)
     bound_ms, bound_by, byts, flops = flash_bound(*FLASH_TRAIN, 2)
     print(f"flash_attention at the training shape (B,Hq,Hkv,S,D)="
@@ -3006,6 +3092,68 @@ def phase_flash_gemma_times(fwd, ref):
                      "library_backend": backend}
         del cases, out
         torch.cuda.empty_cache()
+    return res
+
+
+def flash_bwd_bound(B, Hq, Hkv, S, T, D, window):
+    """The backward's least time at one bf16 shape, as
+    ``cardbench/metrics/attn_bwd_roofline.train.py`` counts it: q, o, dO
+    read and dq written, k, v read and dk, dv written, lse read; five
+    products at the bf16 peak.  Also the time of the kernel's own tensor
+    work at the peak: ten products (S and dP in both passes, dQ, dK and
+    dV each as hi + lo)."""
+    _, _, _, fwd_flops = flash_bound(B, Hq, Hkv, S, T, D, window, 2)
+    byts = (4 * B * Hq * S * D + 4 * B * Hkv * T * D) * 2 + B * Hq * S * 4
+    bound_ms = max(byts / HBM_BYTES_PER_S, 2.5 * fwd_flops / BF16_FLOPS) * 1e3
+    return bound_ms, 5 * fwd_flops / BF16_FLOPS * 1e3, byts, 2.5 * fwd_flops
+
+
+def phase_flash_bwd_times():
+    """13c: the backward kernel at qwen3-8b's training shape (bf16,
+    causal) by device time, its dQ pass and its dK / dV pass apart (the
+    event time per back-to-back call beside it), beside the bound, the
+    time of its tensor work at the peak, the plain backward, and the
+    backward of ``F.scaled_dot_product_attention`` (``enable_gqa=True``,
+    ``is_causal``), a yardstick only: the port never calls it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    B, Hq, Hkv, S, T, D, window = FLASH_TRAIN
+    cases = [flash_bwd_case(*FLASH_TRAIN, seed=30 + 2 * i) for i in range(2)]
+
+    def kernel(i):
+        return flash_attention_bwd(*cases[i % 2])
+    ms = device_ms(kernel, 10, ("flash_bwd_dq", "flash_bwd_dkv"))
+    dq_ms = device_ms(kernel, 10, "flash_bwd_dq")
+    dkv_ms = device_ms(kernel, 10, "flash_bwd_dkv")
+    call_ms = event_ms(kernel, 10)
+    plain_ms = event_ms(lambda i: flash_attention_bwd_plain(*cases[i % 2]), 2)
+    torch.cuda.empty_cache()
+    xs = [[t.detach().clone().requires_grad_() for t in c[:3]] for c in cases]
+    outs = [F.scaled_dot_product_attention(*x, is_causal=True, enable_gqa=True)
+            for x in xs]
+
+    def sdpa_bwd(i):
+        return torch.autograd.grad(outs[i % 2], xs[i % 2], cases[i % 2][5],
+                                   retain_graph=True)
+    backend = sdpa_backend(lambda: sdpa_bwd(0))
+    library_ms = device_ms(sdpa_bwd, 10)
+    bound_ms, tensor_ms, byts, flops = flash_bwd_bound(*FLASH_TRAIN)
+    print(f"flash backward kernel at the training shape (B,Hq,Hkv,S,D)="
+          f"{(B, Hq, Hkv, S, D)}, bf16 causal: {ms * 1e3:.1f} us of device "
+          f"time (dQ pass {dq_ms * 1e3:.1f}, dK / dV pass {dkv_ms * 1e3:.1f}; "
+          f"{call_ms * 1e3:.1f} us per call back to back), bound "
+          f"{bound_ms * 1e3:.1f} us (operations: {flops / 1e9:.1f} GFLOP; "
+          f"{byts / 1e6:.1f} MB), its ten products at the peak "
+          f"{tensor_ms * 1e3:.1f} us; plain backward {plain_ms * 1e3:.1f} us; "
+          f"sdpa backward {library_ms * 1e3:.1f} us of device time (its "
+          f"kernels: {backend})")
+    res = {"ms": ms, "dq_ms": dq_ms, "dkv_ms": dkv_ms, "call_ms": call_ms,
+           "bound_ms": bound_ms, "bound_by": "operations",
+           "tensor_work_ms": tensor_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library_backend": backend}
+    del cases, xs, outs
+    torch.cuda.empty_cache()
     return res
 
 
@@ -3138,19 +3286,20 @@ def profile_train_step(trainer, step_fn, loader, step):
         return sum(e.self_device_time_total for e in kernels
                    if pred(e.key)) / busy
     flash = share(lambda k: "flash_fwd" in k)     # either instance
+    flash_bwd = share(lambda k: "flash_bwd" in k)  # both passes
     gemm = share(lambda k: any(w in k for w in ("gemm", "xmma", "cutlass",
                                                 "nvjet")))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     print(f"profile of one training step: {wall_us / 1e3:.1f} ms under the "
           f"profiler, device busy {busy / 1e3:.1f} ms ({busy / wall_us:.3f} "
           f"of wall), {sum(e.count for e in kernels)} kernels; flash "
-          f"{flash:.3f}, matmuls {gemm:.3f}, rest {1 - flash - gemm:.3f} of "
-          f"device time; top: "
+          f"{flash:.3f}, flash backward {flash_bwd:.3f}, matmuls {gemm:.3f}, "
+          f"rest {1 - flash - flash_bwd - gemm:.3f} of device time; top: "
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / busy:.3f}"
                       for e in top))
     return {"profiled_step_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / wall_us, "flash_share": flash,
-            "matmul_share": gemm,
+            "flash_bwd_share": flash_bwd, "matmul_share": gemm,
             "kernels_per_step": sum(e.count for e in kernels)}
 
 
@@ -3175,6 +3324,8 @@ def phase_train(fwd, kernels, arch="qwen3-8b", steps=TRAIN_STEPS):
     through the port's Trainer (adamw, cosine_lr, full remat, use_kernel)
     for ``steps`` steps on SyntheticLM batches of 2 x 4096 tokens."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (BWD_MAX_HEAD_DIM,
+                                                     flash_attention_bwd)
     from repro_torch.models.config import SWA
     from repro_torch.models.transformer import init_params, trainable
     from repro_torch.train.trainer import TrainConfig, Trainer
@@ -3227,6 +3378,15 @@ def phase_train(fwd, kernels, arch="qwen3-8b", steps=TRAIN_STEPS):
     if window_launches != per_step_window * steps:
         fail(f"flash launches with a window {window_launches} != "
              f"{per_step_window} x {steps} steps")
+    # one backward a layer a step, by the kernel up to D = 128, by the
+    # plain route at gemma3-12b's D = 256
+    bwd = {"launches": flash_attention_bwd.launches,
+           "plain_calls": flash_attention_bwd.plain_calls}
+    kernel_bwd = cfg.head_dim <= BWD_MAX_HEAD_DIM
+    want = {"launches": len(layers) * steps * kernel_bwd,
+            "plain_calls": len(layers) * steps * (not kernel_bwd)}
+    if bwd != want:
+        fail(f"flash backward calls {bwd} != {want} ({len(layers)} a step)")
     losses = [m["loss"] for m in hist]
     if len(losses) != steps or not all(np.isfinite(losses)):
         fail(f"training losses are not {steps} finite values: {losses}")
@@ -3245,14 +3405,18 @@ def phase_train(fwd, kernels, arch="qwen3-8b", steps=TRAIN_STEPS):
     }
     print(f"trained {steps} steps ({wall:.1f}s): loss {losses[0]:.4f} "
           f"-> {losses[-1]:.4f}; flash launches {launches} = {per_step} x "
-          f"{steps}, {window_launches} of them with a window")
+          f"{steps}, {window_launches} of them with a window; backward: "
+          f"{bwd['launches']} kernel launches, {bwd['plain_calls']} plain "
+          f"calls")
     print(f"training {arch}: " + ", ".join(f"{k}={v}"
                                            for k, v in timing.items()))
     timing.update(profile_train_step(trainer, step_fn, loader, steps))
     del trainer, hist
     gc.collect()
     torch.cuda.empty_cache()
-    return {"all": launches, "window": window_launches}, timing, step0
+    return ({"all": launches, "window": window_launches,
+             "bwd": bwd["launches"], "bwd_plain": bwd["plain_calls"]},
+            timing, step0)
 
 
 def phase_remat_policies(fwd, kernels):
@@ -3263,6 +3427,7 @@ def phase_remat_policies(fwd, kernels):
     launches == 16 a step under each (the kernel runs again in every
     recompute); ms per step, the step's peak memory and that of one more
     forward and backward printed, not gated."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.models.transformer import init_params, trainable
     from repro_torch.optim.adamw import adamw, cosine_lr
     from repro_torch.train.step import grads_of, loss_fn, make_train_step
@@ -3297,6 +3462,13 @@ def phase_remat_policies(fwd, kernels):
         if fwd.launches != 2 * cfg.n_layers * REMAT_STEPS:
             fail(f"remat {policy}: flash launches {fwd.launches} != "
                  f"{2 * cfg.n_layers} x {REMAT_STEPS} steps")
+        rows[policy]["bwd_launches"] = flash_attention_bwd.launches
+        if (flash_attention_bwd.launches, flash_attention_bwd.plain_calls) \
+                != (cfg.n_layers * REMAT_STEPS, 0):
+            fail(f"remat {policy}: backward kernel launches "
+                 f"{flash_attention_bwd.launches}, plain calls "
+                 f"{flash_attention_bwd.plain_calls} != {cfg.n_layers} x "
+                 f"{REMAT_STEPS} steps, 0")
         # the step's peak falls in the optimizer's update; the policy
         # moves the peak of the forward and backward, read apart here
         # (params and adamw state still held, as in the step)
@@ -3324,7 +3496,8 @@ def phase_remat_policies(fwd, kernels):
               f"the forward and backward), step 0 loss {r['loss']:.6f} grad "
               f"norm {r['grad_norm']:.6f} (relative to full's: loss "
               f"{d['loss']:.3e}, grad norm {d['grad_norm']:.3e}; tol "
-              f"{STEP0_TOL['loss']}); flash launches {r['launches']}")
+              f"{STEP0_TOL['loss']}); flash launches {r['launches']}, "
+              f"backward kernel launches {r['bwd_launches']}")
     return rows
 
 
@@ -4242,7 +4415,8 @@ def pipe_stage_main(rank, port, tmp):
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor, Shard
     from repro_torch.core.executor import spmd_pipeline
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.tree import tree_map
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4276,13 +4450,17 @@ def pipe_stage_main(rank, port, tmp):
             torch.cuda.synchronize()
             dist.barrier()
             flash_attention_fwd.launches = 0
+            flash_attention_bwd.launches = flash_attention_bwd.plain_calls = 0
             t0 = time.perf_counter()
             out = spmd_pipeline(timed, params, xs, mesh, stats=stats)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = flash_attention_fwd.launches
         ref = torch.load(Path(tmp) / "ref.pt", map_location=dev)
+        # the pipeline runs forward only: no backward call of either route
         torch.save(dict(stats, launches=launches, wall_s=wall,
+                        bwd_calls=(flash_attention_bwd.launches,
+                                   flash_attention_bwd.plain_calls),
                         stage_ms=sum(a.elapsed_time(b) for a, b in events),
                         equal=bool(torch.equal(out, ref)),
                         max_abs_err=float((out.float() - ref.float()).abs()
@@ -4362,7 +4540,8 @@ def phase_pipeline(fwd):
     for r, st in enumerate(ranks):
         print(f"pipeline 17a rank {r}: stage {st['stage']}, "
               f"{st['stage_calls']} stage calls, {st['launches']} flash "
-              f"launches, stage compute {st['stage_ms']:.2f} ms on CUDA "
+              f"launches (backward: {st['bwd_calls'][0]} kernel launches, "
+              f"{st['bwd_calls'][1]} plain calls), stage compute {st['stage_ms']:.2f} ms on CUDA "
               f"events, pipeline {st['wall_s'] * 1e3:.2f} ms wall; sent "
               f"{st['bytes_sent'] / 1e6:.2f} MB, received "
               f"{st['bytes_received'] / 1e6:.2f} MB, broadcast "
@@ -4435,7 +4614,7 @@ def phase_checker(card: str) -> dict:
     """18a runs ``python -m repro_torch.analysis --strict --format json``
     on this checkout: it must exit 0.  18b holds the five built libraries
     to the ``extern "C"`` declarations KRN001 parses from ``csrc/*.cu``
-    (17 functions): after each wrapper's ``_lib()`` has typed its
+    (18 functions): after each wrapper's ``_lib()`` has typed its
     bindings, the functions it bound are exactly the parsed ones, each is
     a symbol of the built library, and each one's live ``argtypes`` /
     ``restype`` have the parsed C signature's count and widths (the
@@ -4505,8 +4684,8 @@ def phase_checker(card: str) -> dict:
                      f"csrc/{decl.source}:{decl.line} declares "
                      f"{list(decl.param_kinds)} -> {decl.ret_kind}")
             checked.append(fname)
-    if len(checked) != 17:
-        fail(f"18b checked {len(checked)} exports, want 17: {checked}")
+    if len(checked) != 18:
+        fail(f"18b checked {len(checked)} exports, want 18: {checked}")
     print(f"18b kernel interfaces: {len(checked)} exports of "
           f"{len(wrappers)} libraries bound by their wrappers, present in "
           f"the built libraries, argtypes and restype equal to csrc's "
@@ -4573,7 +4752,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
     from repro_torch.kernels.mamba_scan import mamba_scan_fwd
     from repro_torch.kernels.paged_attention import paged_attention_fwd
     from repro_torch.kernels.quantize import (int8_dequantize_fwd,
@@ -4582,7 +4762,8 @@ def main() -> int:
                                          paged_attention_ref, rwkv_scan_ref)
     from repro_torch.kernels.rwkv_scan import rwkv_scan_fwd
     kernels = (paged_attention_fwd, rwkv_scan_fwd, mamba_scan_fwd,
-               flash_attention_fwd, int8_quantize_fwd, int8_dequantize_fwd)
+               flash_attention_fwd, int8_quantize_fwd, int8_dequantize_fwd,
+               flash_attention_bwd)
 
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4611,9 +4792,15 @@ def main() -> int:
     phase_flash_vs_plain(flash_attention_fwd, flash_attention_ref)
     gc.collect()
     torch.cuda.empty_cache()
+    phase_flash_bwd_vs_plain()
+    gc.collect()
+    torch.cuda.empty_cache()
     # by device time before any serving phase, as 10c
     fa_gemma = phase_flash_gemma_times(flash_attention_fwd,
                                        flash_attention_ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd_times = phase_flash_bwd_times()
     gc.collect()
     torch.cuda.empty_cache()
     phase_flash_backward()
@@ -4743,6 +4930,17 @@ def main() -> int:
                     "S=4096 D=128 causal, 4 gloo ranks on the card":
                         {"launches": pipe["launches"],
                          "launches_per_rank": pipe["ranks"]}}},
+        # the training shape; launches: qwen3-8b's trained run (phase 12),
+        # whose 8 layers each run one backward a step; gemma3-12b's (D =
+        # 256) take the plain route
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": None, "launches": fa_launches["bwd"], **bwd_times,
+         "shapes": {"qwen3-8b training B=2 Hq=32 Hkv=8 S=4096 D=128 causal":
+                        dict(bwd_times, launches=fa_launches["bwd"]),
+                    "gemma3-12b training B=2 Hq=16 Hkv=8 S=4096 D=256":
+                        {"launches": gt_launches["bwd"],
+                         "plain_calls": gt_launches["bwd_plain"]}}},
         # the decentralized plane's whole gradient (2.788 B bf16 elements);
         # launches: every payload and the gradient of its hand-driven step
         {"name": "int8_quantize", "route": "cuda",

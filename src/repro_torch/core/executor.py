@@ -39,7 +39,7 @@ from repro_torch.tree import flatten_with_paths, leaves, tree_map, unflatten
 #
 # init(gen, cfg, device) -> params;  apply(params, cfg, *args, positions,
 # use_kernel=False) -> output.  ``use_kernel`` sends the attention blocks
-# through the flash kernel (its forward; the backward is plain); the
+# through the flash kernels (forward and backward); the
 # Mamba and RWKV blocks keep their plain scans, whose kernels have no
 # backward yet.
 # ---------------------------------------------------------------------------

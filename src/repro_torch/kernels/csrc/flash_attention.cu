@@ -9,8 +9,7 @@
 //     o_i     = sum_j softmax_j(s[i]) v_j              (online, float32)
 // and writes o_i = acc / max(l, 1e-30) in q's dtype.  Beyond the TPU kernel it
 // writes the row's logsumexp, lse_i = m_i + log(max(l_i, 1e-30)), in float32,
-// which the backward pass (plain PyTorch, kernels/flash_attention.py) uses to
-// rebuild the softmax.  Masks are by index, as in the TPU kernel: query row i
+// which the backward (section 3 below) uses to rebuild the softmax.  Masks are by index, as in the TPU kernel: query row i
 // sits at position i and key row j at position j.
 //
 // Bound on this card.  At the training shape of qwen3-8b (B = 2, Hq = 32,
@@ -104,6 +103,40 @@
 //      their scores against kv rows tx + 16 c and output columns
 //      64 c + 4 tx .. + 3; row max and sum by half-warp shuffles; P goes
 //      through shared memory (over the K tile) to the P.V product.
+// 3. The backward of a bf16 call with D <= 128 (`flash_attention_bwd`): the
+//    gradients dq, dk, dv of o from dO, the saved q, k, v, o and lse.  It
+//    replaces no TPU kernel (XLA differentiates the JAX package's attention);
+//    it is the port's own kernel for the backward the training step runs
+//    once a layer, in place of the plain float32 blocked backward of
+//    kernels/flash_attention.py, which stays for float32, D > 128 and the
+//    CPU.  The FlashAttention-2 equations, as the plain version states them:
+//        P = exp(scale Q K^T - lse) (masked to 0),  delta = rowsum(dO * O)
+//        dV = P^T dO,  dS = P (dO V^T - delta),
+//        dQ = scale dS K,  dK = scale dS^T Q
+//    Bound: at qwen3-8b's training shape five products over the 537 M causal
+//    pairs, 687 GFLOP, 695 us at the bf16 peak (bytes: 337 MB, 100 us).  Two
+//    passes, launched in turn on one stream, each with the DP = 256
+//    forward's block (two consumer warpgroups, a producer warpgroup whose
+//    registers `setmaxnreg` hands to them, TMA, a 2-stage ring):
+//    * the dQ pass, one block per (b, q head, 128 rows), walks the kv tiles
+//      its rows see and recomputes S and dP; dQ stays in float32 registers
+//      and is written once.  It first computes delta for its rows and writes
+//      each 64-row tile's lse and delta, for the second pass's TMA;
+//    * the dK / dV pass, one block per (b, kv head, 128 keys), walks for
+//      each of the G query heads in turn the 64-row q tiles that see its
+//      keys, computing S^T = K Q^T and dP^T = V dO^T, so that P^T and dS^T
+//      come out in the accumulator layout that is the A fragment of dV +=
+//      P^T dO and dK += dS^T Q: they never leave registers.  dK and dV stay
+//      in float32 registers over all G heads and are written once.
+//    Both grids put their longest walks first.  P^T and dS (the products'
+//    register operands) go to the tensor cores as hi + lo, as P does in the
+//    forward; with S and dP computed in both passes that is ten products of
+//    tensor work, 1.39 ms at the peak.  S and dP
+//    are exact float32 sums of exact bf16 products.  No atomics: each output
+//    element is written by one thread, the sums run in a fixed order, and
+//    the result is the same in every run.  D = 256 (the two 64 x 256
+//    float32 accumulators alone would take 256 registers a thread) and
+//    float32 keep the plain backward.
 // The multiply-adds contract into fma and the sums run in another order than
 // the plain version's, so results differ from it in the last bits.
 //
@@ -784,6 +817,532 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
+// The backward (bf16, D <= 128): a dQ pass, then a dK / dV pass
+// ---------------------------------------------------------------------------
+//
+// Both passes have the DP = 256 forward's block: two consumer warpgroups of
+// 64 rows each and a producer warpgroup whose registers `setmaxnreg` hands
+// to them (40 / 232), waits that give up and trap after their loop, TMA
+// boxes of 64 columns with 128-byte swizzle, and a 2-stage ring.
+
+// s (64 x 64, f32) = A (64 rows x DP, smem, K-major) . B (64 rows x DP,
+// smem, K-major)^T; each operand's 64-column blocks lie a_cb / b_cb bytes
+// apart
+template <int DP>
+__device__ __forceinline__ void issue_ss(float (&d)[32], uint32_t a,
+                                         uint32_t a_cb, uint32_t b,
+                                         uint32_t b_cb) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss_n64(d, make_desc(a + (kk / 4) * a_cb + off, 16, 1024),
+                 make_desc(b + (kk / 4) * b_cb + off, 16, 1024), kk > 0);
+  }
+}
+
+// d (64 x DP, f32) += (hi + lo) (64 x 64, registers) . B (64 rows x DP,
+// smem, MN-major: the tile's rows are the product's depth)
+template <int DP>
+__device__ __forceinline__ void issue_rs2(float (&d)[DP / 2],
+                                          const uint32_t (&hi)[4][4],
+                                          const uint32_t (&lo)[4][4],
+                                          uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = make_desc(b + kk * 16 * 128, 64 * 128, 1024);
+    wgmma_rs<DP>(d, hi[kk], db);
+    wgmma_rs<DP>(d, lo[kk], db);
+  }
+}
+
+// x (a 64 x 64 accumulator) as the A fragments of four k16 steps, each as
+// hi = bf16(x) and lo = bf16(x - hi)
+__device__ __forceinline__ void split_hi_lo(const float (&x)[32],
+                                            uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x0 = x[8 * kk + 2 * e], x1 = x[8 * kk + 2 * e + 1];
+      const uint32_t h = pack_bf16(x0, x1);
+      hi[kk][e] = h;
+      lo[kk][e] = pack_bf16(x0 - __uint_as_float(h << 16),
+                            x1 - __uint_as_float(h & 0xffff0000u));
+    }
+}
+
+// this thread's rows r0 and r0 + 8 of a 64 x DP accumulator, times mul, into
+// the (n_rows, D) bf16 matrix at base
+template <int DP>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base,
+                                           const float (&acc)[DP / 2], int r0,
+                                           int n_rows, int D, int col_l,
+                                           float mul) {
+  const int r1 = r0 + 8;
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i) {
+    const int col = 8 * i + col_l;
+    if (col < D) {
+      if (r0 < n_rows)
+        *reinterpret_cast<__nv_bfloat162*>(base + (size_t)r0 * D + col) =
+            __floats2bfloat162_rn(acc[4 * i] * mul, acc[4 * i + 1] * mul);
+      if (r1 < n_rows)
+        *reinterpret_cast<__nv_bfloat162*>(base + (size_t)r1 * D + col) =
+            __floats2bfloat162_rn(acc[4 * i + 2] * mul, acc[4 * i + 3] * mul);
+    }
+  }
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Shared memory of a backward block, in bytes from a 1024-byte aligned base:
+// two buffers of 128 rows (the dQ pass: Q and dO of its rows; the dK / dV
+// pass: K and V of its keys), two rings of TC_STAGES 64-row tiles (K and V;
+// Q and dO), a ring of row statistics (the dK / dV pass: lse and delta of
+// the stage's 64 rows), then the mbarriers: the buffers landed, and per
+// stage the stage landed and the stage free again.
+template <int DP>
+struct BwdLayout {
+  static constexpr int NB = DP / 64;
+  static constexpr int WIDE = 128 * DP * 2;
+  static constexpr int TILE = 64 * DP * 2;
+  static constexpr int STAT = 2 * 64 * 4;
+  static constexpr int B_OFF = WIDE;
+  static constexpr int R1_OFF = 2 * WIDE;
+  static constexpr int R2_OFF = R1_OFF + TC_STAGES * TILE;
+  static constexpr int STAT_OFF = R2_OFF + TC_STAGES * TILE;
+  static constexpr int BAR_OFF = STAT_OFF + TC_STAGES * STAT;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * TC_STAGES) + 1024;
+  static_assert(BYTES <= 232448, "over the 227 KB a block may use");
+};
+
+// Row statistics, float32, (B * Hq, ceil(S / 64), 2, 64): per 64-row tile of
+// a head its rows' lse, then their delta = rowsum(dO * O); rows >= S hold
+// lse = +inf and delta = 0, so that their P is exactly 0.
+constexpr int STAT_FLOATS = 128;
+
+// The dQ pass.  One block per (b, q head, 128 q rows), the longest walks
+// first; each consumer warpgroup owns 64 rows.  It first computes its rows'
+// delta from dO and O and writes their statistics; then for each kv tile of
+// 64 keys that its rows see: S = Q K^T and dP = dO V^T (wgmma, both operands
+// from shared memory), P = exp(scale S - lse) masked by index, dS = P (dP -
+// delta), dQ += (hi + lo of dS) K.  dQ is scaled and written once.  (S and
+// dP of the next tile issued behind a tile's dQ product, with a third
+// stage, made ptxas serialize the wgmma, advisory C7515: 1.68 ms against
+// 1.43 at qwen3-8b's training shape.)
+template <int DP>
+__global__ void __launch_bounds__(TC_THREADS_WS, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __nv_bfloat16* __restrict__ o,
+                        const __nv_bfloat16* __restrict__ d_o,
+                        const float* __restrict__ lse,
+                        __nv_bfloat16* __restrict__ dq,
+                        float* __restrict__ stats, int Hq, int Hkv, int S,
+                        int T_, int D, float scale, int causal, int window) {
+  using L = BwdLayout<DP>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t sbase = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sq = sbase, sdo = sbase + L::B_OFF;
+  const uint32_t sk = sbase + L::R1_OFF, sv = sbase + L::R2_OFF;
+  const uint32_t bar_q = sbase + L::BAR_OFF;
+  const uint32_t bar_full = bar_q + 8, bar_free = bar_full + 8 * TC_STAGES;
+
+  const int bh = blockIdx.x;                       // b * Hq + h
+  const int qt = (int)gridDim.y - 1 - (int)blockIdx.y;  // longest walks first
+  const int b = bh / Hq, h = bh % Hq;
+  const int kvh = b * Hkv + h / (Hq / Hkv);
+  const int q0 = qt * 128;
+  // kv tiles that hold at least one unmasked key for these rows
+  const int q_last = min(q0 + 128, S) - 1;
+  int kv_hi = T_;
+  if (causal) kv_hi = min(kv_hi, q_last + 1);
+  const int kv_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_begin = kv_lo / 64;
+  const int n_tiles = max(0, (kv_hi + 63) / 64 - t_begin);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < TC_STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_free + 8 * s, 256);            // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  bool dead = false;                               // a bounded wait gave up
+  const auto wait = [&](uint32_t bar, uint32_t parity) {
+    mbar_wait_bounded(bar, parity, dead);
+  };
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == 2) {
+    // ---- producer: one thread ------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        TC_REGS_PRODUCER));
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(bar_q, 2 * L::WIDE);
+      for (int c = 0; c < L::NB; ++c) {
+        tma_load_3d(sq + c * 128 * 128, &tm_q, bar_q, c * 64, q0, bh);
+        tma_load_3d(sdo + c * 128 * 128, &tm_do, bar_q, c * 64, q0, bh);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % TC_STAGES;
+        const int kv0 = (t_begin + it) * 64;
+        const uint32_t full = bar_full + 8 * st;
+        wait(bar_free + 8 * st, ((it / TC_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * L::TILE);
+        for (int c = 0; c < L::NB; ++c) {
+          tma_load_3d(sk + st * L::TILE + c * 64 * 128, &tm_k, full, c * 64,
+                      kv0, kvh);
+          tma_load_3d(sv + st * L::TILE + c * 64 * 128, &tm_v, full, c * 64,
+                      kv0, kvh);
+        }
+      }
+    }
+    if (dead) asm volatile("trap;");               // a wait gave up
+  } else {
+    // ---- consumers -------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        TC_REGS_CONSUMER));
+    const int t = threadIdx.x - 128 * wg;
+    const int warp = t >> 5, lane = t & 31;
+    const int qa = q0 + 64 * wg;                   // this warpgroup's rows
+    const int row0 = qa + 16 * warp + (lane >> 2), row1 = row0 + 8;
+    const int col_l = 2 * (lane & 3);
+
+    // delta of the warp's 16 rows (warp-uniform rows, a warp-wide sum);
+    // each thread keeps those of its two rows
+    float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const int row = qa + 16 * warp + r;
+      float sum = 0.f;
+      if (row < S) {
+        const __nv_bfloat16* x = o + ((size_t)bh * S + row) * D;
+        const __nv_bfloat16* y = d_o + ((size_t)bh * S + row) * D;
+        for (int c = 2 * lane; c < D; c += 64) {
+          const float2 a = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(x + c));
+          const float2 g = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(y + c));
+          sum += a.x * g.x + a.y * g.y;
+        }
+      }
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, m);
+      if (r == (lane >> 2)) d0 = sum;
+      if (r == (lane >> 2) + 8) d1 = sum;
+    }
+    const float l0 = row0 < S ? lse[(size_t)bh * S + row0] : INFINITY;
+    const float l1 = row1 < S ? lse[(size_t)bh * S + row1] : INFINITY;
+    const int n_t64 = (S + 63) / 64;
+    if (qa / 64 < n_t64 && (lane & 3) == 0) {
+      float* st = stats + ((size_t)bh * n_t64 + qa / 64) * STAT_FLOATS;
+      st[row0 - qa] = l0;
+      st[row1 - qa] = l1;
+      st[64 + row0 - qa] = d0;
+      st[64 + row1 - qa] = d1;
+    }
+
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    float s[32], dp[32];
+    uint32_t ds[4][4], dsl[4][4];
+    const uint32_t q_rows = sq + wg * 64 * 128, do_rows = sdo + wg * 64 * 128;
+
+    wait(bar_q, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % TC_STAGES;
+      const int kv0 = (t_begin + it) * 64;
+      const uint32_t k_t = sk + st * L::TILE, v_t = sv + st * L::TILE;
+      wait(bar_full + 8 * st, (it / TC_STAGES) & 1);
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      issue_ss<DP>(s, q_rows, 128 * 128, k_t, 64 * 128);
+      wgmma_commit();
+      issue_ss<DP>(dp, do_rows, 128 * 128, v_t, 64 * 128);
+      wgmma_commit();
+      wgmma_wait<1>();                             // S is done
+      fence_regs(s);
+      const bool need_mask =
+          kv0 + 64 > T_ || (causal && kv0 + 63 > qa) ||
+          (window > 0 && kv0 <= qa + 63 - window);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = kv0 + 8 * i + col_l + (e & 1);
+          const int r = e < 2 ? row0 : row1;
+          float p = expf(s[4 * i + e] * scale - (e < 2 ? l0 : l1));
+          if (need_mask &&
+              (j >= T_ || (causal && j > r) || (window > 0 && j <= r - window)))
+            p = 0.f;
+          s[4 * i + e] = p;
+        }
+      wgmma_wait<0>();                             // dP is done
+      fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * i + e] = s[4 * i + e] * (dp[4 * i + e] - (e < 2 ? d0 : d1));
+      split_hi_lo(dp, ds, dsl);
+      fence_regs(acc);
+      fence_regs(ds);
+      fence_regs(dsl);
+      wgmma_fence();
+      issue_rs2<DP>(acc, ds, dsl, k_t);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(ds);
+      fence_regs(dsl);
+      mbar_arrive(bar_free + 8 * st);
+    }
+    if (dead) asm volatile("trap;");               // a wait gave up
+    store_rows<DP>(dq + (size_t)bh * S * D, acc, row0, S, D, col_l, scale);
+  }
+}
+
+// The dK / dV pass.  One block per (b, kv head, 128 keys), the longest walks
+// (the first keys, under the causal mask) first; each consumer warpgroup
+// owns 64 keys, whose K and V rows stay in shared memory.  For each of the
+// kv head's G query heads in turn it walks the 64-row q tiles that see the
+// block's keys, from the diagonal under the causal mask, inside the window:
+// S^T = K Q^T and dP^T = V dO^T (wgmma, both operands from shared memory),
+// P^T = exp(scale S^T - lse) masked by index, dS^T = P^T (dP^T - delta),
+// dV += (hi + lo of P^T) dO, dK += (hi + lo of dS^T) Q.  The accumulator
+// layout of S^T and dP^T is the A-fragment layout of the next products, so
+// P^T and dS^T never leave registers; dK and dV stay in float32 registers
+// over all G heads and are written once.
+template <int DP>
+__global__ void __launch_bounds__(TC_THREADS_WS, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const float* __restrict__ stats,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int Hq, int Hkv,
+                         int S, int T_, int D, float scale, int causal,
+                         int window) {
+  using L = BwdLayout<DP>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sbase = (raw + 1023) & ~1023u;
+  const uint32_t sk = sbase, sv = sbase + L::B_OFF;
+  const uint32_t sq = sbase + L::R1_OFF, sdo = sbase + L::R2_OFF;
+  const uint32_t sst = sbase + L::STAT_OFF;
+  const float* stat_f =
+      reinterpret_cast<const float*>(smem_raw + (sst - raw));
+  const uint32_t bar_kv = sbase + L::BAR_OFF;
+  const uint32_t bar_full = bar_kv + 8, bar_free = bar_full + 8 * TC_STAGES;
+
+  const int bkv = blockIdx.x;                      // b * Hkv + kv head
+  const int b = bkv / Hkv, kh = bkv % Hkv, G = Hq / Hkv;
+  const int kv0 = blockIdx.y * 128;
+  // q tiles that see at least one of the block's keys
+  const int q_lo = causal ? min(kv0, S) : 0;
+  const int q_hi = window > 0 ? min(S, kv0 + 127 + window) : S;
+  const int qt_lo = q_lo / 64;
+  const int n_q = q_lo < q_hi ? (q_hi + 63) / 64 - qt_lo : 0;
+  const int n_steps = G * n_q;
+  const int n_t64 = (S + 63) / 64;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < TC_STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_free + 8 * s, 256);            // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  bool dead = false;                               // a bounded wait gave up
+  const auto wait = [&](uint32_t bar, uint32_t parity) {
+    mbar_wait_bounded(bar, parity, dead);
+  };
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == 2) {
+    // ---- producer: one thread ------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        TC_REGS_PRODUCER));
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(bar_kv, 2 * L::WIDE);
+      for (int c = 0; c < L::NB; ++c) {
+        tma_load_3d(sk + c * 128 * 128, &tm_k, bar_kv, c * 64, kv0, bkv);
+        tma_load_3d(sv + c * 128 * 128, &tm_v, bar_kv, c * 64, kv0, bkv);
+      }
+      for (int it = 0; it < n_steps; ++it) {
+        const int st = it % TC_STAGES;
+        const int qt = qt_lo + it % n_q;
+        const int hq = b * Hq + kh * G + it / n_q;
+        const uint32_t full = bar_full + 8 * st;
+        wait(bar_free + 8 * st, ((it / TC_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * L::TILE + L::STAT);
+        for (int c = 0; c < L::NB; ++c) {
+          tma_load_3d(sq + st * L::TILE + c * 64 * 128, &tm_q, full, c * 64,
+                      qt * 64, hq);
+          tma_load_3d(sdo + st * L::TILE + c * 64 * 128, &tm_do, full,
+                      c * 64, qt * 64, hq);
+        }
+        bulk_load(sst + st * L::STAT,
+                  stats + ((size_t)hq * n_t64 + qt) * STAT_FLOATS, L::STAT,
+                  full);
+      }
+    }
+    if (dead) asm volatile("trap;");               // a wait gave up
+  } else {
+    // ---- consumers -------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        TC_REGS_CONSUMER));
+    const int t = threadIdx.x - 128 * wg;
+    const int warp = t >> 5, lane = t & 31;
+    const int ka = kv0 + 64 * wg;                  // this warpgroup's keys
+    const int key0 = ka + 16 * warp + (lane >> 2), key1 = key0 + 8;
+    const int col_l = 2 * (lane & 3);
+    const uint32_t k_rows = sk + wg * 64 * 128, v_rows = sv + wg * 64 * 128;
+
+    float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    float s[32], dp[32];
+    uint32_t p[4][4], pl[4][4], ds[4][4], dsl[4][4];
+
+    wait(bar_kv, 0);
+    for (int it = 0; it < n_steps; ++it) {
+      const int st = it % TC_STAGES;
+      const int q0 = (qt_lo + it % n_q) * 64;
+      const uint32_t q_t = sq + st * L::TILE, do_t = sdo + st * L::TILE;
+      const float* lse_t = stat_f + st * (L::STAT / 4);
+      const float* delta_t = lse_t + 64;
+      wait(bar_full + 8 * st, (it / TC_STAGES) & 1);
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      issue_ss<DP>(s, k_rows, 128 * 128, q_t, 64 * 128);
+      wgmma_commit();
+      issue_ss<DP>(dp, v_rows, 128 * 128, do_t, 64 * 128);
+      wgmma_commit();
+      const bool need_mask =
+          ka + 64 > T_ || (causal && ka + 63 > q0) ||
+          (window > 0 && ka <= q0 + 63 - window);
+      wgmma_wait<1>();                             // S^T is done
+      fence_regs(s);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float2 l = *reinterpret_cast<const float2*>(lse_t + 8 * i + col_l);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = e < 2 ? key0 : key1;
+          const int r = q0 + 8 * i + col_l + (e & 1);
+          float pv = expf(s[4 * i + e] * scale - ((e & 1) ? l.y : l.x));
+          if (need_mask &&
+              (j >= T_ || (causal && j > r) || (window > 0 && j <= r - window)))
+            pv = 0.f;
+          s[4 * i + e] = pv;
+        }
+      }
+      wgmma_wait<0>();                             // dP^T is done
+      fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float2 dl =
+            *reinterpret_cast<const float2*>(delta_t + 8 * i + col_l);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * i + e] =
+              s[4 * i + e] * (dp[4 * i + e] - ((e & 1) ? dl.y : dl.x));
+      }
+      split_hi_lo(s, p, pl);
+      split_hi_lo(dp, ds, dsl);
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(p);
+      fence_regs(pl);
+      fence_regs(ds);
+      fence_regs(dsl);
+      wgmma_fence();
+      issue_rs2<DP>(dv_acc, p, pl, do_t);
+      issue_rs2<DP>(dk_acc, ds, dsl, q_t);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(p);
+      fence_regs(pl);
+      fence_regs(ds);
+      fence_regs(dsl);
+      mbar_arrive(bar_free + 8 * st);
+    }
+    if (dead) asm volatile("trap;");               // a wait gave up
+    const size_t base = (size_t)bkv * T_ * D;
+    store_rows<DP>(dk + base, dk_acc, key0, T_, D, col_l, scale);
+    store_rows<DP>(dv + base, dv_acc, key0, T_, D, col_l, 1.f);
+  }
+}
+
+template <int DP>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* d_o, const float* lse, void* dq, void* dk,
+               void* dv, float* stats, int B, int Hq, int Hkv, int S, int T_,
+               int D, float scale, int causal, int window,
+               cudaStream_t stream) {
+  // the dQ pass's maps cut 128 q / dO rows and 64 keys a box, the dK / dV
+  // pass's 64 q / dO rows and 128 keys
+  CUtensorMap q128, do128, k64, v64, q64, do64, k128, v128;
+  if (!make_map(&q128, q, B * Hq, S, D, 128) ||
+      !make_map(&do128, d_o, B * Hq, S, D, 128) ||
+      !make_map(&k64, k, B * Hkv, T_, D, 64) ||
+      !make_map(&v64, v, B * Hkv, T_, D, 64) ||
+      !make_map(&q64, q, B * Hq, S, D, 64) ||
+      !make_map(&do64, d_o, B * Hq, S, D, 64) ||
+      !make_map(&k128, k, B * Hkv, T_, D, 128) ||
+      !make_map(&v128, v, B * Hkv, T_, D, 128))
+    return (int)cudaErrorInvalidValue;
+  const int smem = BwdLayout<DP>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<DP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err != cudaSuccess) return (int)err;
+  // the dQ pass writes the row statistics the dK / dV pass reads; both run
+  // on `stream`, in that order
+  flash_bwd_dq_kernel<DP><<<dim3(B * Hq, (S + 127) / 128), TC_THREADS_WS,
+                            smem, stream>>>(
+      q128, do128, k64, v64, static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(d_o), lse,
+      static_cast<__nv_bfloat16*>(dq), stats, Hq, Hkv, S, T_, D, scale,
+      causal, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkv_kernel<DP><<<dim3(B * Hkv, (T_ + 127) / 128), TC_THREADS_WS,
+                             smem, stream>>>(
+      q64, do64, k128, v128, stats, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), Hq, Hkv, S, T_, D, scale, causal,
+      window);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // The CUDA-core instance (float32; bf16 that TMA cannot take)
 // ---------------------------------------------------------------------------
 
@@ -1117,6 +1676,35 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     return launch_d<__nv_bfloat16>(q, k, v, o, lse_f, B, Hq, Hkv, S, T, D,
                                    scale, causal, window, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The backward of a bf16 call: q, o, d_o, dq: (B, Hq, S, D); k, v, dk, dv:
+// (B, Hkv, T, D), all contiguous bf16 with 16-byte aligned bases, D % 8 == 0
+// and D <= 128; lse: the forward's (B, Hq, S) float32; stats: float32
+// scratch of B * Hq * ceil(S / 64) * 128 elements.  Launches the dQ pass,
+// then the dK / dV pass, on `stream`.  Returns the cudaError_t of the
+// launches (cudaErrorInvalidValue for anything else).
+int flash_attention_bwd(const void* q, const void* k, const void* v,
+                        const void* o, const void* d_o, const void* lse,
+                        void* dq, void* dk, void* dv, void* stats, int B,
+                        int Hq, int Hkv, int S, int T, int D, float scale,
+                        int causal, int window, void* stream) {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv || S < 1 || T < 1 || D < 8 ||
+      D > 128 || D % 8 || (S + 127) / 128 > 65535 || (T + 127) / 128 > 65535 ||
+      !aligned(q) || !aligned(k) || !aligned(v) || !aligned(o) ||
+      !aligned(d_o) || !aligned(stats))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* lse_f = static_cast<const float*>(lse);
+  float* stats_f = static_cast<float*>(stats);
+  if (D <= 64)
+    return launch_bwd<64>(q, k, v, o, d_o, lse_f, dq, dk, dv, stats_f, B, Hq,
+                          Hkv, S, T, D, scale, causal, window, st);
+  return launch_bwd<128>(q, k, v, o, d_o, lse_f, dq, dk, dv, stats_f, B, Hq,
+                         Hkv, S, T, D, scale, causal, window, st);
 }
 
 }  // extern "C"

@@ -14,10 +14,18 @@ counts launches, so a run can show that its attention went through the
 kernel (``window_launches`` counts those with a sliding window apart).
 
 ``FlashAttention`` is the differentiable call: its forward is
-``flash_attention_fwd``; its backward, ``flash_attention_bwd``, is plain
-PyTorch — the FlashAttention-2 equations, blocked over kv tiles, from the
-saved q, k, v, output and logsumexp.  (The JAX package has no backward
-kernel: XLA differentiates its jnp attention.)
+``flash_attention_fwd``; its backward, ``flash_attention_bwd``, takes the
+FlashAttention-2 equations from the saved q, k, v, output and logsumexp
+by one of two routes, chosen by the inputs' device, dtype and head dim
+(``bwd_route``): the Hopper kernel of ``csrc/flash_attention.cu`` for
+CUDA bf16 tensors with D % 8 == 0 and D <= 128 (the calls its forward
+runs on the tensor cores; an operand that is not 16-byte aligned is
+copied), and otherwise ``flash_attention_bwd_plain``, plain
+PyTorch in float32 blocked over kv tiles — the CPU's version, and the
+card's for float32 and for D = 256.  ``flash_attention_bwd.launches``
+counts the kernel's calls, ``flash_attention_bwd.plain_calls`` the plain
+route's on the card.  (The JAX package has no backward kernel: XLA
+differentiates its jnp attention.)
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.ref import flash_attention_ref
 
 MAX_HEAD_DIM = 256
+BWD_MAX_HEAD_DIM = 128   # of the backward kernel
 BLOCK_K = 512   # keys per kv tile of the plain backward
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -45,6 +54,8 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_tensor_cores.restype = ctypes.c_int
         lib.flash_attention_smem_bytes.argtypes = [i, i]
         lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
+        lib.flash_attention_bwd.argtypes = [p] * 10 + [i] * 6 + [f, i, i, p]
+        lib.flash_attention_bwd.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
 
@@ -120,8 +131,97 @@ flash_attention_fwd.launches = 0
 flash_attention_fwd.window_launches = 0     # the launches with a window
 
 
+def bwd_route(q: torch.Tensor) -> str:
+    """``"kernel"`` where ``flash_attention_bwd`` launches the backward
+    kernel: a CUDA bf16 call with D % 8 == 0 and D <= ``BWD_MAX_HEAD_DIM``
+    (the calls the forward runs on the tensor cores, up to D = 128); else
+    ``"plain"``.  The forward's checks hold k, v and out to q's dtype and
+    device."""
+    D = q.shape[-1]
+    if (q.device.type != "cuda" or q.dtype != torch.bfloat16 or D % 8
+            or D > BWD_MAX_HEAD_DIM):
+        return "plain"
+    return "kernel"
+
+
 def flash_attention_bwd(q, k, v, out, lse, d_out, *, causal: bool = True,
                         window: int = 0, scale: Optional[float] = None):
+    """Gradients (dq, dk, dv) of ``flash_attention_fwd``'s output from the
+    saved inputs, output and logsumexp and the output's gradient, in the
+    inputs' dtype: by the kernel where ``bwd_route`` says so, else by
+    ``flash_attention_bwd_plain``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if bwd_route(q) == "kernel":
+        return _bwd_kernel(q, k, v, out, lse, d_out, causal=causal,
+                           window=window, scale=scale)
+    if q.device.type == "cuda":
+        flash_attention_bwd.plain_calls += 1
+    return flash_attention_bwd_plain(q, k, v, out, lse, d_out, causal=causal,
+                                     window=window, scale=scale)
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.plain_calls = 0      # the plain route's calls on the card
+
+
+def _bwd_operands(q, k, v, out, lse, d_out):
+    """The backward kernel's operands, checked as the forward checks its
+    own: raises on a shape, dtype or device that does not match q's and on
+    a q, k, v or out that is not contiguous (``FlashAttention`` saves the
+    forward's contiguous inputs and output); copies any of them that is
+    not 16-byte aligned, and d_out (autograd's, of any layout) where it is
+    not contiguous or not aligned."""
+    _check(q, k, v)
+    B, Hq, S, D = q.shape
+    if out.shape != q.shape or out.dtype != q.dtype \
+            or out.device != q.device or not out.is_contiguous():
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} must be "
+                         f"contiguous and match q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (B, Hq, S) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype} must be a "
+                         f"contiguous float32 (B, Hq, S) of q {tuple(q.shape)}")
+    if d_out.shape != q.shape or d_out.dtype != q.dtype \
+            or d_out.device != q.device:
+        raise ValueError(f"d_out {tuple(d_out.shape)} {d_out.dtype} does not "
+                         f"match q {tuple(q.shape)} {q.dtype}")
+    d_out = d_out.contiguous()
+    return tuple(t if t.data_ptr() % 16 == 0 else torch.empty_like(t).copy_(t)
+                 for t in (q, k, v, out, lse, d_out))
+
+
+def _bwd_kernel(q, k, v, out, lse, d_out, *, causal, window, scale):
+    """Launch the backward kernel (its dQ pass, then its dK / dV pass) on
+    the current stream: ``bwd_route(q) == "kernel"``."""
+    refuse_autograd("flash_attention_bwd", q, k, v, out, d_out)
+    q, k, v, out, lse, d_out = _bwd_operands(q, k, v, out, lse, d_out)
+    B, Hq, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    # per 64-row tile of each q head: its rows' lse and delta (the dQ pass
+    # writes them, the dK / dV pass reads them)
+    stats = torch.empty((B * Hq, -(-S // 64), 2, 64), dtype=torch.float32,
+                        device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _lib().flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            d_out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), stats.data_ptr(), B, Hq, Hkv, S, T, D,
+            float(scale), int(causal), int(window), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd: CUDA launch failed "
+                           f"(cudaError_t {err})")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, d_out, *,
+                              causal: bool = True, window: int = 0,
+                              scale: Optional[float] = None):
     """Gradients (dq, dk, dv) of ``flash_attention_fwd``'s output, in
     plain PyTorch and float32, from the saved inputs, output and
     logsumexp.  Per kv tile of ``BLOCK_K`` keys, for the query rows that
@@ -175,20 +275,21 @@ def flash_attention_bwd(q, k, v, out, lse, d_out, *, causal: bool = True,
             dv.to(v.dtype))
 
 
-def _span(name, q, k, causal, window):
+def _span(name, q, k, causal, window, route=False):
     """A ``tracing`` span with the call's shape, built only when spans
-    record."""
+    record; with ``route``, also the backward's route."""
     if not tracing.enabled():
         return tracing.NULL
     B, Hq, S, D = q.shape
+    extra = {"route": bwd_route(q)} if route else {}
     return tracing.span(name, B=B, Hq=Hq, Hkv=k.shape[1], S=S, T=k.shape[2],
                         D=D, causal=bool(causal), window=int(window),
-                        dtype=str(q.dtype).removeprefix("torch."))
+                        dtype=str(q.dtype).removeprefix("torch."), **extra)
 
 
 class FlashAttention(torch.autograd.Function):
-    """Differentiable flash attention: the kernel forward (the plain
-    version on CPU tensors) and the plain blocked backward."""
+    """Differentiable flash attention: the kernel forward and
+    ``flash_attention_bwd`` (the plain versions on CPU tensors)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
@@ -203,7 +304,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, d_out):
         q, k, v, out, lse = ctx.saved_tensors
         with _span("attn.backward", q, k, ctx.opts["causal"],
-                   ctx.opts["window"]):
+                   ctx.opts["window"], route=True):
             dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, d_out,
                                              **ctx.opts)
         return dq, dk, dv, None, None, None

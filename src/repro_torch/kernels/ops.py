@@ -23,8 +23,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sliding window), GQA through ``h // G``: q (B,Hq,S,D), k / v
     (B,Hkv,T,D) contiguous -> (B,Hq,S,D).  The signature and result of
     ``repro.kernels.ops.flash_attention`` (without its TPU block sizes);
-    differentiable, with the kernel as the forward and a plain blocked
-    backward (see ``kernels.flash_attention``)."""
+    differentiable, with kernels as the forward and the backward (the
+    backward's plain route for float32 and D > 128; see
+    ``kernels.flash_attention``)."""
     return FlashAttention.apply(q, k, v, causal, window, scale)
 
 

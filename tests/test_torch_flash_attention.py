@@ -33,7 +33,7 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_bwd, flash_attention_fwd)
+    flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd)
 from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
@@ -156,6 +156,229 @@ def test_tensor_core_rounding_model_matches_jax_kernel(B, Hq, Hkv, S, D, window,
     if p_parts == 1:        # the single rounding does move the result
         plain = flash_attention_ref(tq, tk, tv, window=window)
         assert not torch.equal(out, plain)
+
+
+def tc_kernel_bwd_rounding_model(q, k, v, out, lse, d_out, *, causal=True,
+                                 window=0, parts=2):
+    """The arithmetic of the backward kernel of ``csrc/flash_attention.cu``
+    in float32 torch, walking its tiles.  Exact scores S and dP (float32
+    sums of bf16 products), P = exp(scale S - lse) masked by index,
+    delta = rowsum(dO * O), dS = P (dP - delta); P^T and dS go to the
+    products in bf16, as hi + lo (``parts=2``, the kernel) or once
+    (``parts=1``).  The dQ pass: per block of 128 rows, the 64-key tiles
+    its rows see, in order.  The dK / dV pass: per block of 128 keys, for
+    each of the kv head's G query heads in turn, the 64-row q tiles that
+    see its keys, from the diagonal (causal) and inside the window.  The
+    tile bounds are the kernel's.  Returns (dq, dk, dv) in bf16."""
+    B, Hq, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    c = D ** -0.5
+    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, out, d_out))
+    kq = kf.repeat_interleave(G, dim=1)
+    vq = vf.repeat_interleave(G, dim=1)
+    i, j = torch.arange(S)[:, None], torch.arange(T)[None, :]
+    ok = torch.ones((S, T), dtype=torch.bool)
+    if causal:
+        ok &= j <= i
+    if window:
+        ok &= j > i - window
+    p = torch.where(ok, torch.exp(qf @ kq.transpose(-1, -2) * c
+                                  - lse[..., None]), 0.0)
+    delta = (gf * of).sum(-1, keepdim=True)
+    ds = p * (gf @ vq.transpose(-1, -2) - delta)
+
+    def split(x):
+        hi = x.to(torch.bfloat16).float()
+        return [hi, (x - hi).to(torch.bfloat16).float()][:parts]
+
+    dq = torch.zeros_like(qf)
+    for q0 in range(0, S, 128):
+        q_last = min(q0 + 128, S) - 1
+        kv_hi = min(T, q_last + 1) if causal else T
+        kv_lo = max(0, q0 - window + 1) if window else 0
+        for t in range(kv_lo // 64, -(-kv_hi // 64)):
+            rows, keys = slice(q0, q0 + 128), slice(64 * t, 64 * t + 64)
+            for part in split(ds[:, :, rows, keys]):
+                dq[:, :, rows] += part @ kq[:, :, keys]
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    by_kv = lambda x: x.reshape(B, Hkv, G, *x.shape[2:])
+    pt, dst = by_kv(p).transpose(-1, -2), by_kv(ds).transpose(-1, -2)
+    qg, gg = by_kv(qf), by_kv(gf)
+    for kv0 in range(0, T, 128):
+        q_lo = min(kv0, S) if causal else 0
+        q_hi = min(S, kv0 + 127 + window) if window else S
+        if q_lo >= q_hi:
+            continue
+        keys = slice(kv0, kv0 + 128)
+        for g in range(G):
+            for qt in range(q_lo // 64, -(-q_hi // 64)):
+                rows = slice(64 * qt, 64 * qt + 64)
+                for part in split(pt[:, :, g, keys, rows]):
+                    dv[:, :, keys] += part @ gg[:, :, g, rows]
+                for part in split(dst[:, :, g, keys, rows]):
+                    dk[:, :, keys] += part @ qg[:, :, g, rows]
+    return ((dq * c).to(torch.bfloat16), (dk * c).to(torch.bfloat16),
+            dv.to(torch.bfloat16))
+
+
+# D <= 128 (the kernel's): GQA at G = 1, 2, 4, 8, a window, S not a
+# multiple of a tile, T > S, several 128-key blocks and 64-row tiles
+BWD_TC = ([c + (None,) for c in SWEEP if c[4] <= 128]
+          + [(1, 8, 1, 100, 128, 0, None), (2, 4, 2, 40, 64, 0, 100),
+             (1, 4, 2, 300, 64, 0, None), (1, 4, 1, 200, 128, 70, 260)])
+
+
+def _bwd_case(B, Hq, Hkv, S, D, window, T):
+    """bf16 inputs and dO, the forward's bf16 output and lse (plain, CPU)."""
+    q, k, v = qkv(B, Hq, Hkv, S, D, seed=S + D, T=T)
+    d_out = np.random.RandomState(S + 1).randn(B, Hq, S, D).astype(np.float32)
+    tq, tk, tv, tg = (torch.from_numpy(a).to(torch.bfloat16)
+                      for a in (q, k, v, d_out))
+    out, lse = flash_attention_fwd(tq, tk, tv, window=window)
+    return tq, tk, tv, tg, out, lse
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,window,T", BWD_TC)
+def test_backward_rounding_model_matches_jax_grad_and_plain(B, Hq, Hkv, S, D,
+                                                            window, T):
+    """The backward kernel's rounding and tile walk (P^T and dS as hi + lo
+    bf16, float32 sums, one bf16 rounding at the end) against ``jax.grad``
+    of the JAX model's attention, in float32 on the same bf16 inputs and
+    dO, and against the plain blocked backward.  Both differ from the
+    model by the final bf16 rounding (2^-9 of an element) and by what the
+    jnp attention computes unrounded (its output, so delta): within 1e-2
+    of each gradient's largest element against ``jax.grad``, and within
+    one bf16 step of it, 2^-8, against the plain backward (which rounds
+    the same float32 values, summed in another order).  P and dS rounded
+    once move the result."""
+    tq, tk, tv, tg, out, lse = _bwd_case(B, Hq, Hkv, S, D, window, T)
+    got = tc_kernel_bwd_rounding_model(tq, tk, tv, out, lse, tg,
+                                       window=window)
+    plain = flash_attention_bwd(tq, tk, tv, out, lse, tg, window=window)
+    Sk = tk.shape[2]
+    pos_q = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32)[None], (B, S))
+    pos_k = jnp.broadcast_to(jnp.arange(Sk, dtype=jnp.int32)[None], (B, Sk))
+    w = jnp.asarray(tg.float().numpy().transpose(0, 2, 1, 3))
+
+    def jloss(q, k, v):
+        o = JL.attention(q, k, v, pos_q, pos_k, window=window, kv_chunk=32)
+        return jnp.sum(o * w)
+    bshd = lambda t: jnp.asarray(t.float().numpy().transpose(0, 2, 1, 3))
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(bshd(tq), bshd(tk), bshd(tv))
+    for name, a, b, j in zip("qkv", got, plain, jg):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        j = np.asarray(j).transpose(0, 2, 1, 3)
+        scale = float(np.abs(j).max())
+        np.testing.assert_allclose(a.float().numpy(), j, atol=1e-2 * scale,
+                                   rtol=0, err_msg=f"d{name} vs jax.grad")
+        np.testing.assert_allclose(a.float().numpy(), b.float().numpy(),
+                                   atol=2 ** -8 * scale, rtol=0,
+                                   err_msg=f"d{name} vs plain")
+    once = tc_kernel_bwd_rounding_model(tq, tk, tv, out, lse, tg,
+                                        window=window, parts=1)
+    assert not all(torch.equal(a, b) for a, b in zip(once, got))
+
+
+def test_backward_rounded_once_moves_further_from_float32():
+    """P and dS rounded to bf16 once (no lo part) move dK and dV further
+    from the float32 gradients than hi + lo does, at a training-like
+    shape with long causal rows."""
+    tq, tk, tv, tg, out, lse = _bwd_case(1, 4, 1, 512, 64, 0, None)
+    exact = [t.float() for t in flash_attention_bwd_plain(
+        tq.float(), tk.float(), tv.float(), out.float(), lse, tg.float())]
+    err = {}
+    for parts in (2, 1):
+        got = tc_kernel_bwd_rounding_model(tq, tk, tv, out, lse, tg,
+                                           parts=parts)
+        err[parts] = [((a.float() - b).norm() / b.norm()).item()
+                      for a, b in zip(got, exact)]
+    assert err[1][1] > err[2][1] and err[1][2] > err[2][2], err
+
+
+class _Like:
+    """What ``bwd_route`` reads of a tensor, for CUDA inputs without a
+    card."""
+
+    def __init__(self, D=128, dtype=torch.bfloat16, device="cuda"):
+        self.shape, self.dtype = (2, 32, 64, D), dtype
+        self.device = torch.device(device)
+
+
+@pytest.mark.parametrize("kw,route", [
+    ({}, "kernel"), ({"D": 64}, "kernel"), ({"D": 8}, "kernel"),
+    ({"D": 256}, "plain"), ({"D": 136}, "plain"), ({"D": 100}, "plain"),
+    ({"dtype": torch.float32}, "plain"), ({"device": "cpu"}, "plain")])
+def test_backward_route_by_device_dtype_and_head_dim(kw, route):
+    """The backward kernel takes CUDA bf16 calls with D % 8 == 0 and D <=
+    128; D = 256 (gemma3-12b), float32 and the CPU take the plain route.
+    Nothing else decides: alignment is the kernel's wrapper's to repair
+    (below)."""
+    assert FA.bwd_route(_Like(**kw)) == route
+
+
+def _operands(dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(3)
+    q, out, d_out = (torch.randn((1, 4, 40, 64), generator=g).to(dtype)
+                     for _ in range(3))
+    k, v = (torch.randn((1, 2, 40, 64), generator=g).to(dtype)
+            for _ in range(2))
+    return q, k, v, out, torch.randn((1, 4, 40), generator=g), d_out
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 16, dtype=t.dtype)
+    off = next(i for i in range(16) if (flat.data_ptr() + i * t.element_size())
+               % 16 == t.element_size())
+    return flat[off:off + t.numel()].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("at", range(6))
+def test_backward_kernel_copies_a_misaligned_operand(at):
+    """An operand that is not 16-byte aligned reaches the kernel as an
+    aligned copy of the same values; the others pass as they are."""
+    ops_ = list(_operands())
+    ops_[at] = _misaligned(ops_[at])
+    assert ops_[at].is_contiguous() and ops_[at].data_ptr() % 16
+    got = FA._bwd_operands(*ops_)
+    for i, (a, b) in enumerate(zip(got, ops_)):
+        assert a.data_ptr() % 16 == 0 and torch.equal(a, b)
+        assert (a.data_ptr() == b.data_ptr()) == (i != at)
+
+
+def test_backward_kernel_makes_d_out_contiguous():
+    """Autograd's d_out may come in any layout: the kernel gets it
+    contiguous."""
+    q, k, v, out, lse, d_out = _operands()
+    d_out = d_out.transpose(2, 3).contiguous().transpose(2, 3)
+    assert not d_out.is_contiguous()
+    got = FA._bwd_operands(q, k, v, out, lse, d_out)[5]
+    assert got.is_contiguous() and torch.equal(got, d_out)
+
+
+@pytest.mark.parametrize("at", range(4))
+def test_backward_kernel_refuses_a_non_contiguous_input(at):
+    """q, k, v and out come contiguous from ``FlashAttention``'s forward;
+    one that is not is refused, as the forward refuses it."""
+    ops_ = list(_operands())
+    ops_[at] = ops_[at].transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        FA._bwd_operands(*ops_)
+
+
+def test_backward_on_the_cpu_counts_no_kernel_call():
+    """On CPU tensors ``flash_attention_bwd`` runs the plain version and
+    counts neither a launch nor a plain call on the card; its result is
+    ``flash_attention_bwd_plain``'s."""
+    tq, tk, tv, tg, out, lse = _bwd_case(1, 4, 2, 40, 64, 0, None)
+    before = (flash_attention_bwd.launches, flash_attention_bwd.plain_calls)
+    got = flash_attention_bwd(tq, tk, tv, out, lse, tg)
+    exp = flash_attention_bwd_plain(tq, tk, tv, out, lse, tg)
+    assert (flash_attention_bwd.launches,
+            flash_attention_bwd.plain_calls) == before
+    assert all(torch.equal(a, b) for a, b in zip(got, exp))
 
 
 def test_more_keys_than_queries_masks_by_index():

@@ -91,6 +91,10 @@ def test_step_spans_and_their_parents(traced):
     assert attn.attrs == {"B": 2, "Hq": CFG.n_heads, "Hkv": CFG.n_kv_heads,
                           "S": 32, "T": 32, "D": CFG.head_dim,
                           "causal": True, "window": 0, "dtype": "bfloat16"}
+    # the backward's span also names its route: the plain one on the CPU
+    for r in recs:
+        if r.name == "attn.backward":
+            assert r.attrs == dict(attn.attrs, route="plain")
 
 
 def test_every_span_is_a_profiler_range(traced):
